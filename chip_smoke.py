@@ -1,0 +1,385 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (nnaudio_tpu_torch) on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases:
+ 1. the device, and ``nvidia-smi``'s name and power limit;
+ 2. build every CUDA kernel from ``nnaudio_tpu_torch/csrc`` (nvcc, sm_90a);
+ 3. hold each kernel against its plain PyTorch version on the card, in fp32
+    and bf16 storage, at the slice shapes, at hops 160 and 441, at bin counts
+    that are no multiple of a tile, and at 64, 128 and 256 mels;
+ 4. the serving slice through the public entry points, with the launch
+    counts set to 0 before each path and read after it:
+    (a) the flagship SpectrogramClassifier answering 4 requests of
+        32 x 10 s at 16 kHz, (b) STFT Magnitude 2048/512 at 32 x 10 s at
+        22.05 kHz, (c) MelSpectrogram 128 at (b)'s size, (d) the iSTFT (and
+        STFT.inverse) round trip of (b)'s Complex output; (a)-(c) in
+        ``highest`` and in ``fast_mode()``. Each output is checked finite, of
+        its shape, against the plain path on the card, and the STFT against
+        a numpy rfft on a small input;
+ 5. CUDA-event times (median of 15 after warm-up) of each kernel, its plain
+    version and one PyTorch library call computing the same function;
+ 6. a ``kernels`` JSON line, the card's name and power limit, and the
+    result line ``{"ok": true, "device": {...}}`` last.
+
+Any failure raises and exits nonzero. Without CUDA it exits 2 and prints
+no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+PEAK_FP32 = 67e12    # H100 SXM fp32 outside the tensor cores, FLOP/s
+PEAK_BF16 = 989e12   # H100 SXM dense bf16, FLOP/s
+HBM_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+TOL = {"highest": 1e-4, "default": 5e-2}  # tests/test_ops.py:213-216
+REPS = 15
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg):
+    raise RuntimeError(msg)
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def rel_err(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+def cuda_ms(fn, reps=REPS, warmup=3) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` CUDA-event-timed calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
+        return 2
+    from nnaudio_tpu_torch import config
+    from nnaudio_tpu_torch.features import MelSpectrogram, STFT, iSTFT
+    from nnaudio_tpu_torch.models import SpectrogramClassifier
+    from nnaudio_tpu_torch.ops import build, framed_kernels as fk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    card = smi()
+
+    # ---------------------------------------------------------- 1. device --
+    log(f"[device] {name} x{torch.cuda.device_count()}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
+
+    # ----------------------------------------------------------- 2. build --
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"[build] {len(build.build_info['compiled'])} sources compiled in "
+        f"{build.build_info['seconds']:.1f} s (load {time.perf_counter() - t0:.1f} s)")
+    for src, report in build.build_info["ptxas"].items():
+        for line in report.splitlines():
+            if "registers" in line:
+                log(f"[build] {src}: {line.strip()}")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def fourier(n_fft):
+        st = STFT(n_fft=n_fft, hop_length=n_fft // 4, verbose=False, device=dev)
+        return st.wcos, st.wsin
+
+    # ---------------------------------------- 3. kernels vs plain versions --
+    # (B, L, n_fft, hop, F, M): the slice shapes first, then odd hops, bin
+    # counts that are no multiple of a tile, and 64 / 128 / 256 mels
+    cases = [
+        ("slice (b)", 32, 220500 + 2048, 2048, 512, None, 128),
+        ("slice (a)", 32, 160000 + 1024, 1024, 256, None, 64),
+        ("hop 160", 4, 48000, 512, 160, None, 128),
+        ("hop 441", 4, 66150, 2048, 441, None, 256),
+        ("F 1000, hop 100", 2, 30000, 2048, 100, 1000, 64),
+        ("F 201, hop 3", 2, 4000, 400, 3, 201, 256),
+    ]
+    max_abs = {"framed_magnitude": 0.0, "framed_filterbank": 0.0,
+               "synthesis_ola": 0.0}  # fp32 storage, at the slice shapes
+    for mode in ("highest", "default"):
+        config.set_matmul_precision(mode)
+        for label, b, length, n_fft, hop, f, m in cases:
+            wc, ws = fourier(n_fft)
+            if f is not None:
+                wc, ws = randn(f, n_fft), randn(f, n_fft)
+            fb = torch.rand(m, wc.shape[0], generator=gen, device=dev)
+            x = randn(b, length)
+            k1 = fk.framed_magnitude(x, wc, ws, hop, eps=1e-8)
+            torch.cuda.synchronize()
+            p1 = fk.framed_magnitude_plain(x, wc, ws, hop, eps=1e-8)
+            k1p = fk.framed_magnitude(x, wc, ws, hop, square=True)
+            torch.cuda.synchronize()
+            p1p = fk.framed_magnitude_plain(x, wc, ws, hop, square=True)
+            k2 = fk.framed_filterbank(x, wc, ws, fb, hop, eps=1e-8)
+            torch.cuda.synchronize()
+            p2 = fk.framed_filterbank_plain(x, wc, ws, fb, hop, eps=1e-8)
+            t = k1.shape[-1]
+            sre, sim = randn(b, wc.shape[0], t), randn(b, wc.shape[0], t)
+            kc, ks = wc / n_fft, ws / n_fft
+            k3 = fk.synthesis_ola(sre, sim, kc, ks, hop)
+            torch.cuda.synchronize()
+            p3 = fk.synthesis_ola_plain(sre, sim, kc, ks, hop)
+            errs = {"K1": rel_err(k1, p1), "K1 power": rel_err(k1p, p1p),
+                    "K2": rel_err(k2, p2), "K3": rel_err(k3, p3)}
+            if mode == "highest" and label.startswith("slice"):
+                for k, got, ref in (("framed_magnitude", k1, p1),
+                                    ("framed_magnitude", k1p, p1p),
+                                    ("framed_filterbank", k2, p2),
+                                    ("synthesis_ola", k3, p3)):
+                    max_abs[k] = max(max_abs[k], float((got - ref).abs().max()))
+            ok = all(e <= TOL[mode] for e in errs.values())
+            log(f"[check] {mode:8s} {label:16s} B={b} L={length} n_fft={n_fft} "
+                f"hop={hop} F={wc.shape[0]} M={m} T={t}: "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" (tol {TOL[mode]:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"kernel disagrees with its plain version: {mode} {label}")
+            del x, k1, p1, k1p, p1p, k2, p2, k3, p3, sre, sim
+    config.set_matmul_precision("highest")
+
+    # ------------------------------------------------- 4. the serving slice --
+    # a numpy rfft oracle at a small input first
+    xs = np.random.RandomState(0).randn(1, 16000).astype(np.float32)
+    st_small = STFT(n_fft=1024, hop_length=256, output_format="Magnitude",
+                    verbose=False, device=dev)
+    mag = st_small(xs).cpu().numpy()[0]
+    xp = np.pad(xs[0].astype(np.float64), 512, mode="reflect")
+    n_t = (len(xp) - 1024) // 256 + 1
+    win = st_small.window_mask.cpu().numpy().astype(np.float64)
+    frames = np.stack([xp[i * 256:i * 256 + 1024] for i in range(n_t)]) * win
+    oracle = np.abs(np.fft.rfft(frames, axis=1)).T
+    e = float(np.abs(mag - oracle).max() / oracle.max())
+    log(f"[oracle] STFT magnitude 1024/256 vs numpy rfft: rel err {e:.2e}")
+    if e > 1e-4:
+        fail("STFT disagrees with the numpy rfft oracle")
+
+    launches = {k: 0 for k in fk.LAUNCHES}
+    results = {}
+
+    def drive(label, fn, expect_shape):
+        """Run a path with the counts zeroed, then the same path with the
+        kernels off (the plain path) for comparison."""
+        fk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(fk.LAUNCHES)
+        for k, v in counts.items():
+            launches[k] += v
+        outs = out if isinstance(out, list) else [out]
+        for o in outs:
+            if tuple(o.shape) != expect_shape:
+                fail(f"{label}: shape {tuple(o.shape)} != {expect_shape}")
+            if not torch.isfinite(o).all():
+                fail(f"{label}: non-finite output")
+        config.set_use_kernels(False)
+        try:
+            ref = fn()
+        finally:
+            config.set_use_kernels(True)
+        refs = ref if isinstance(ref, list) else [ref]
+        err = max(rel_err(o, r) for o, r in zip(outs, refs))
+        tol = TOL[config.get_config().matmul_precision]
+        log(f"[path] {label}: {dt * 1e3:.1f} ms, launches {counts}, "
+            f"rel err vs plain path {err:.2e} (tol {tol:g})")
+        if err > tol:
+            fail(f"{label}: kernel path disagrees with the plain path")
+        return outs, dt
+
+    sr_a, sr_b, batch, secs = 16000, 22050, 32, 10
+    for mode in ("highest", "default"):
+        config.set_matmul_precision(mode)
+        # (a) the flagship classifier: 4 requests of 32 x 10 s
+        model = SpectrogramClassifier(n_classes=10, sr=sr_a, n_fft=1024,
+                                      hop_length=256, n_mels=64, seed=0,
+                                      device=dev)
+        requests = [randn(batch, sr_a * secs) for _ in range(4)]
+        with torch.no_grad():
+            model(None, requests[0])  # warm-up outside the counted run
+            outs, dt = drive(f"(a) classifier {mode} x4 requests",
+                             lambda: [model(None, r) for r in requests],
+                             (batch, 10))
+        results[f"a_{mode}_audio_s_per_s"] = 4 * batch * secs / dt
+        log(f"[serve] (a) {mode}: 4 requests of {batch} x {secs} s in "
+            f"{dt * 1e3:.1f} ms = {4 * batch * secs / dt:.1f} audio-s/s")
+
+        # (b) STFT Magnitude 2048/512 and (c) Mel 128 at 32 x 10 s, 22.05 kHz
+        xb = randn(batch, sr_b * secs)
+        st = STFT(n_fft=2048, hop_length=512, output_format="Magnitude",
+                  verbose=False, device=dev)
+        mel = MelSpectrogram(sr=sr_b, n_fft=2048, hop_length=512, n_mels=128,
+                             verbose=False, device=dev)
+        with torch.no_grad():
+            drive(f"(b) STFT Magnitude {mode}", lambda: st(xb), (batch, 1025, 431))
+            drive(f"(c) MelSpectrogram {mode}", lambda: mel(xb), (batch, 128, 431))
+            ms_b = cuda_ms(lambda: st(xb))
+            ms_c = cuda_ms(lambda: mel(xb))
+        results[f"b_{mode}_audio_s_per_s"] = batch * secs / (ms_b / 1e3)
+        results[f"c_{mode}_audio_s_per_s"] = batch * secs / (ms_c / 1e3)
+        log(f"[serve] (b) {mode}: {ms_b:.3f} ms per batch = "
+            f"{batch * secs / (ms_b / 1e3):.1f} audio-s/s; (c) {ms_c:.3f} ms = "
+            f"{batch * secs / (ms_c / 1e3):.1f} audio-s/s")
+    config.set_matmul_precision("highest")
+
+    # (d) iSTFT and STFT.inverse round trips of (b)'s Complex output
+    xb = randn(batch, sr_b * secs)
+    stc = STFT(n_fft=2048, hop_length=512, iSTFT=True, verbose=False, device=dev)
+    ist = iSTFT(n_fft=2048, hop_length=512, verbose=False, device=dev)
+    with torch.no_grad():
+        X = stc(xb)
+        outs, _ = drive("(d) iSTFT + STFT.inverse round trip",
+                        lambda: [ist(X, onesided=True, length=xb.shape[1]),
+                                 stc.inverse(X, length=xb.shape[1])],
+                        tuple(xb.shape))
+    rt = max(float((o - xb).abs().max()) for o in outs)
+    log(f"[path] (d) round-trip max abs error {rt:.2e} (tol 1e-3)")
+    if rt > 1e-3:
+        fail("iSTFT round trip error above 1e-3")
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"kernel {k} was not launched on the slice's path")
+
+    # ---------------------------------------------------------- 5. timing --
+    timings = {}
+    config.set_matmul_precision("highest")
+
+    def stft_lib(x, n_fft, hop, window):
+        return torch.stft(x, n_fft, hop, window=window, center=False,
+                          return_complex=True)
+
+    def time_set(mode):
+        config.set_matmul_precision(mode)
+        esz = 2 if mode == "default" else 4
+        peak = PEAK_BF16 if mode == "default" else PEAK_FP32
+        rows = {}
+        with torch.no_grad():
+            # K1 at (b): STFT 2048/512, B=32, T=431, F=1025
+            wc, ws = fourier(2048)
+            win = STFT(n_fft=2048, hop_length=512, verbose=False, device=dev).window_mask
+            x = F.pad(randn(batch, sr_b * secs)[:, None], (1024, 1024), mode="reflect")[:, 0]
+            b, length = x.shape
+            f, n, t = 1025, 2048, 431
+            flops = 4 * b * t * f * n
+            nbytes = esz * (b * length + 2 * f * n) + 4 * b * f * t
+            rows["framed_magnitude"] = dict(
+                ms=cuda_ms(lambda: fk.framed_magnitude(x, wc, ws, 512)),
+                plain_ms=cuda_ms(lambda: fk.framed_magnitude_plain(x, wc, ws, 512)),
+                library_ms=cuda_ms(lambda: stft_lib(x, 2048, 512, win).abs()),
+                flops=flops, bytes=nbytes,
+                shape=f"B={b} L={length} n_fft={n} hop=512 F={f} T={t}")
+            # K2 at (a): classifier frontend 1024/256, B=32, T=626, F=513, M=64
+            wc2, ws2 = fourier(1024)
+            win2 = STFT(n_fft=1024, hop_length=256, verbose=False, device=dev).window_mask
+            fb = MelSpectrogram(sr=sr_a, n_fft=1024, hop_length=256, n_mels=64,
+                                verbose=False, device=dev).mel_basis
+            x2 = F.pad(randn(batch, sr_a * secs)[:, None], (512, 512), mode="reflect")[:, 0]
+            b2, length2 = x2.shape
+            f2, n2, t2, m2 = 513, 1024, 626, 64
+            rows["framed_filterbank"] = dict(
+                ms=cuda_ms(lambda: fk.framed_filterbank(x2, wc2, ws2, fb, 256, eps=1e-8)),
+                plain_ms=cuda_ms(lambda: fk.framed_filterbank_plain(x2, wc2, ws2, fb, 256, eps=1e-8)),
+                library_ms=cuda_ms(lambda: fb @ (stft_lib(x2, 1024, 256, win2).abs() ** 2 + 1e-8)),
+                flops=4 * b2 * t2 * f2 * n2 + 2 * b2 * t2 * f2 * m2,
+                bytes=esz * (b2 * length2 + 2 * f2 * n2 + m2 * f2) + 4 * b2 * m2 * t2,
+                shape=f"B={b2} L={length2} n_fft={n2} hop=256 F={f2} T={t2} M={m2}")
+            # K3 at (d): synthesis 2048/512, B=32, T=431, F=1025
+            sre, sim = randn(batch, f, t), randn(batch, f, t)
+            kc, ks = wc / n, ws / n
+            out_len = n + 512 * (t - 1)
+
+            def fold_lib():
+                fr = (torch.einsum("fj,bft->bjt", kc, sre)
+                      - torch.einsum("fj,bft->bjt", ks, sim))
+                return F.fold(fr, output_size=(1, out_len), kernel_size=(1, n),
+                              stride=(1, 512))
+            rows["synthesis_ola"] = dict(
+                ms=cuda_ms(lambda: fk.synthesis_ola(sre, sim, kc, ks, 512)),
+                plain_ms=cuda_ms(lambda: fk.synthesis_ola_plain(sre, sim, kc, ks, 512)),
+                library_ms=cuda_ms(fold_lib),
+                flops=4 * batch * t * f * n,
+                bytes=esz * (2 * batch * f * t + 2 * f * n) + 4 * batch * out_len,
+                shape=f"B={batch} F={f} T={t} n_fft={n} hop=512")
+        for k, r in rows.items():
+            t_ops, t_bytes = r["flops"] / peak * 1e3, r["bytes"] / HBM_BYTES * 1e3
+            r["bound_ms"] = max(t_ops, t_bytes)
+            r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+            r["roofline_share"] = r["bound_ms"] / r["ms"]
+            log(f"[time] {mode:8s} {k:18s} {r['shape']}: kernel {r['ms']:.3f} ms, "
+                f"plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
+                f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+                f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, roofline share "
+                f"{100 * r['roofline_share']:.1f}%")
+        return rows
+
+    for mode in ("highest", "default"):
+        timings[mode] = time_set(mode)
+    config.set_matmul_precision("highest")
+    log("[timings] " + json.dumps({"card": card, "results": results,
+                                   "timings": timings}))
+
+    # -------------------------------------------------------- 6. summary --
+    meta = {
+        "framed_magnitude": ("nnaudio_tpu_torch/csrc/framed_analysis.cu",
+                             "nnaudio_tpu/ops/framed_matmul.py:273"),
+        "framed_filterbank": ("nnaudio_tpu_torch/csrc/framed_analysis.cu",
+                              "nnaudio_tpu/ops/framed_matmul.py:296"),
+        "synthesis_ola": ("nnaudio_tpu_torch/csrc/synthesis_ola.cu",
+                          "nnaudio_tpu/ops/framed_matmul.py:878"),
+    }
+    kernels = []
+    for k, (src, replaces) in meta.items():
+        r = timings["highest"][k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[k], "max_abs_err": max_abs[k],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,132 @@
+"""Global numerics / execution configuration of the PyTorch port.
+
+Mirrors ``nnaudio_tpu.config``: the same precision modes and kernel
+switches, with the Pallas switches renamed to the port's hand-written
+kernels. The pyramid, MXU-FFT and parallel-chain switches come with the
+modules that read them (CQT/VQT, CFP).
+
+- ``highest``: fp32 operands, fp32 accumulation (TF32 off for plain matmuls).
+- ``default`` (``fast_mode()``): bf16 operand storage, fp32 accumulation.
+- ``tensorfloat32``: TF32 for plain matmuls; the kernels store fp32.
+
+There is no jit cache to salt and no backend probe: PyTorch runs eagerly and
+dispatch keys on the device of the tensor it is given.
+"""
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+
+import torch
+
+PRECISIONS = ("highest", "default", "tensorfloat32")
+
+
+@dataclass
+class _Config:
+    # "highest" (fp32 parity, default), "default" (bf16 fast mode) or
+    # "tensorfloat32"
+    matmul_precision: str = "highest"
+    # Master switch for the hand-written CUDA kernels (ops/framed_kernels.py).
+    use_kernels: bool = True
+    # Analysis kernels (magnitude / power / filterbank epilogues). None =
+    # auto = the kernel for CUDA tensors. False selects the plain version.
+    use_kernels_analysis: bool | None = None
+    # Synthesis + overlap-add kernel (iSTFT). None = auto = the kernel for
+    # CUDA tensors. False selects the plain version.
+    use_kernels_synthesis: bool | None = None
+
+
+_config = _Config()
+
+
+def get_config() -> _Config:
+    return _config
+
+
+def set_matmul_precision(mode: str) -> None:
+    if mode not in PRECISIONS:
+        raise ValueError(f"unknown matmul precision {mode!r}")
+    _config.matmul_precision = mode
+
+
+def set_use_kernels(flag: bool) -> None:
+    _config.use_kernels = bool(flag)
+
+
+def set_use_kernels_analysis(flag: bool | None) -> None:
+    _config.use_kernels_analysis = flag if flag is None else bool(flag)
+
+
+def set_use_kernels_synthesis(flag: bool | None) -> None:
+    _config.use_kernels_synthesis = flag if flag is None else bool(flag)
+
+
+# the JAX package's names for the kernel switches
+set_use_pallas = set_use_kernels
+set_use_pallas_analysis = set_use_kernels_analysis
+set_use_pallas_synthesis = set_use_kernels_synthesis
+
+
+@contextlib.contextmanager
+def fast_mode():
+    """Context: bf16 operand storage with fp32 accumulation."""
+    prev = _config.matmul_precision
+    _config.matmul_precision = "default"
+    try:
+        yield
+    finally:
+        _config.matmul_precision = prev
+
+
+def analysis_kernel_enabled() -> bool:
+    """Whether the analysis ops launch their kernel for a CUDA tensor."""
+    flag = _config.use_kernels_analysis
+    return _config.use_kernels and (flag is None or flag)
+
+
+def synthesis_kernel_enabled() -> bool:
+    """Whether ``synthesis_ola`` launches its kernel for a CUDA tensor."""
+    flag = _config.use_kernels_synthesis
+    return _config.use_kernels and (flag is None or flag)
+
+
+def storage_dtype() -> torch.dtype:
+    """Operand storage type of the kernels in the current precision mode."""
+    return torch.bfloat16 if _config.matmul_precision == "default" else torch.float32
+
+
+@contextlib.contextmanager
+def matmul_numerics():
+    """Plain-path matmul numerics for the current precision mode: fp32
+    (TF32 off) in ``highest``, TF32 in ``tensorfloat32``, and, in
+    ``default``, fp32 matmuls on operands the caller rounded to bf16."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = (
+        _config.matmul_precision == "tensorfloat32")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def resolve_device(device) -> torch.device:
+    """Entry points run on CUDA unless the caller passes ``device="cpu"``;
+    without CUDA and without an explicit device they raise instead of
+    quietly running on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "nnaudio_tpu_torch runs on CUDA by default and no CUDA device "
+                "is available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def round_to_storage(t: torch.Tensor) -> torch.Tensor:
+    """Round a float32 operand to the kernels' storage type and back, so a
+    plain matmul in fp32 sees exactly what a kernel reads (bf16 in
+    ``default`` mode; unchanged otherwise)."""
+    if _config.matmul_precision == "default":
+        return t.to(torch.bfloat16).float()
+    return t

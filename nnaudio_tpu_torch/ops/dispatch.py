@@ -1,0 +1,65 @@
+"""The framed ops, with the JAX package's signatures.
+
+All compute ``Y[b,f,t] = sum_s x[b, t*hop+s] * W[f,s]`` for the cos and sin
+bases and differ in what they do with the pair:
+
+- ``framed_basis_pair`` and ``framed_complex`` are plain torch (unfold +
+  matmul), as the JAX package leaves them to XLA outside any kernel.
+- ``framed_magnitude``, ``framed_power``, ``framed_filterbank`` and
+  ``synthesis_ola`` go to the hand-written kernels of
+  :mod:`.framed_kernels` (which take the plain version for CPU tensors),
+  unless the user turned the kernels off (``config.set_use_kernels*``), in
+  which case they take the plain version on every device.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import analysis_kernel_enabled, synthesis_kernel_enabled
+from . import framed_kernels as fk
+
+
+def framed_basis_pair(x, wcos, wsin, hop):
+    """Signal (B, L) x bases (F, n_fft) -> (real, imag_raw), each (B, F, T).
+    ``imag_raw`` is the un-negated sin projection."""
+    return fk.framed_pair_plain(x, wcos, wsin, hop)
+
+
+def framed_complex(x, wcos, wsin, scale, hop):
+    """Reference-convention Complex stack: ``out[..., 0] = real * s_f``,
+    ``out[..., 1] = -imag_raw * s_f``; ``scale`` may be None."""
+    real, imag = fk.framed_pair_plain(x, wcos, wsin, hop)
+    if scale is not None:
+        s = scale.reshape(1, -1, 1)
+        real, imag = real * s, imag * s
+    return torch.stack((real, -imag), dim=-1)
+
+
+def framed_magnitude(x, wcos, wsin, hop, eps=0.0):
+    """``sqrt((x*wcos)^2 + (x*wsin)^2 + eps)`` -> (B, F, T)."""
+    if analysis_kernel_enabled():
+        return fk.framed_magnitude(x, wcos, wsin, hop, eps=eps)
+    return fk.framed_magnitude_plain(x, wcos, wsin, hop, eps=eps)
+
+
+def framed_power(x, wcos, wsin, hop):
+    """Power spectrum ``(x*wcos)^2 + (x*wsin)^2`` -> (B, F, T)."""
+    if analysis_kernel_enabled():
+        return fk.framed_magnitude(x, wcos, wsin, hop, square=True)
+    return fk.framed_magnitude_plain(x, wcos, wsin, hop, square=True)
+
+
+def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0):
+    """``fb @ (|STFT|^2 + eps)`` -> (B, n_mels, T); the (B, F, T) power never
+    reaches device memory on the kernel path."""
+    if analysis_kernel_enabled():
+        return fk.framed_filterbank(x, wcos, wsin, fb, hop, eps=eps)
+    return fk.framed_filterbank_plain(x, wcos, wsin, fb, hop, eps=eps)
+
+
+def synthesis_ola(spec_re, spec_im, kc, ks, hop):
+    """iSTFT synthesis: (B, F, T) spectra x (F, n_fft) fully weighted kernels
+    -> (B, n_fft + hop*(T-1)) overlap-added signal, ``OLA(kc^T Re - ks^T Im)``."""
+    if synthesis_kernel_enabled():
+        return fk.synthesis_ola(spec_re, spec_im, kc, ks, hop)
+    return fk.synthesis_ola_plain(spec_re, spec_im, kc, ks, hop)

@@ -1,0 +1,83 @@
+"""The port's serving slice end to end: the flagship classifier against the
+JAX model, the port's import boundary and its device rule."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from nnaudio_tpu.models import SpectrogramClassifier as JaxClassifier
+from nnaudio_tpu_torch.interop import load_jax_state, params_from_jax
+from nnaudio_tpu_torch.models import SpectrogramClassifier
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_classifier_logits_match_jax():
+    """2 x 1 s at the entry configuration, with perturbed mel_basis, head_w
+    and head_b carried across by interop."""
+    kw = dict(n_classes=10, sr=16000, n_fft=1024, hop_length=256, n_mels=64)
+    jm = JaxClassifier(**kw)
+    rng = np.random.RandomState(12)
+    params = {k: np.asarray(v) for k, v in jm.init_params.items()}
+    params["mel_basis"] = params["mel_basis"] * (1 + 0.2 * rng.randn(*params["mel_basis"].shape)).astype(np.float32)
+    params["head_w"] = params["head_w"] + 0.1 * rng.randn(*params["head_w"].shape).astype(np.float32)
+    params["head_b"] = rng.randn(10).astype(np.float32)
+    x = rng.randn(2, 16000).astype(np.float32)
+    labels = np.array([3, 7])
+
+    want = np.asarray(jm.forward({k: jnp.asarray(v) for k, v in params.items()},
+                                 jnp.asarray(x)))
+    tm = SpectrogramClassifier(device="cpu", **kw)
+    assert set(tm.state_dict()) == set(params)
+    got = tm.forward(params_from_jax(params, "cpu"), x).detach().numpy()
+    assert np.allclose(got, want, rtol=1e-4, atol=1e-4), np.abs(got - want).max()
+
+    load_jax_state(tm, params)
+    assert np.allclose(tm(None, x).detach().numpy(), want, rtol=1e-4, atol=1e-4)
+    jloss = float(jm.loss_fn({k: jnp.asarray(v) for k, v in params.items()},
+                             jnp.asarray(x), jnp.asarray(labels)))
+    assert np.isclose(tm.loss_fn(None, x, labels).item(), jloss, rtol=1e-4, atol=1e-4)
+
+
+def _port_sources():
+    yield from sorted((ROOT / "nnaudio_tpu_torch").rglob("*.py"))
+    yield ROOT / "chip_smoke.py"
+
+
+@pytest.mark.parametrize("path", list(_port_sources()), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    """Neither the port nor chip_smoke.py imports jax, jaxlib or nnaudio_tpu."""
+    banned = ("jax", "jaxlib", "nnaudio_tpu")
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:  # relative imports stay inside the package
+                continue
+            names = [node.module or ""]
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) in ("import_module", "__import__"):
+            names = [a.value for a in node.args if isinstance(a, ast.Constant) and isinstance(a.value, str)]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in banned, f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_entry_points_refuse_the_cpu_without_a_device_argument():
+    """Without CUDA, an entry point called without ``device=`` raises instead
+    of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is available")
+    from nnaudio_tpu_torch.features import MelSpectrogram, STFT, iSTFT
+
+    for make in (lambda: STFT(verbose=False), lambda: iSTFT(verbose=False),
+                 lambda: MelSpectrogram(verbose=False),
+                 lambda: SpectrogramClassifier(),
+                 lambda: params_from_jax({"a": np.zeros(2)}, None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
