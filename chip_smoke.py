@@ -8,18 +8,26 @@ Phases:
  2. build every CUDA kernel from ``nnaudio_tpu_torch/csrc`` (nvcc, sm_90a);
  3. hold each kernel against its plain PyTorch version on the card, in fp32
     and bf16 storage, at the slice shapes, at hops 160 and 441, at bin counts
-    that are no multiple of a tile, and at 64, 128 and 256 mels;
- 4. the serving slice through the public entry points, with the launch
-    counts set to 0 before each path and read after it:
+    that are no multiple of a tile, and at 64, 128 and 256 mels; the
+    Griffin-Lim step (K4) also in fp32 and bf16 carries, and the pair (K5)
+    with its backward against plain autograd;
+ 4. the slice through the public entry points, with the launch counts set
+    to 0 before each path and read after it:
     (a) the flagship SpectrogramClassifier answering 4 requests of
         32 x 10 s at 16 kHz, (b) STFT Magnitude 2048/512 at 32 x 10 s at
         22.05 kHz, (c) MelSpectrogram 128 at (b)'s size, (d) the iSTFT (and
         STFT.inverse) round trip of (b)'s Complex output; (a)-(c) in
-        ``highest`` and in ``fast_mode()``. Each output is checked finite, of
-        its shape, against the plain path on the card, and the STFT against
-        a numpy rfft on a small input;
+        ``highest`` and in ``fast_mode()``; on a seeded batch of 32 x 10 s
+        harmonic clips at 22.05 kHz, (e) mel -> audio: MelSpectrogram 80
+        (1024/256) then InverseMelSpectrogram (64 NNLS + 32 Griffin-Lim
+        iterations, bf16 carries), and (f) Griffin_Lim 2048/512 with fp32
+        iterations on (b)'s magnitude. Each output is checked finite, of its
+        shape, against the plain path on the card (Griffin-Lim at 2
+        iterations; at 32 by spectral convergence), and the STFT against a
+        numpy rfft on a small input;
  5. CUDA-event times (median of 15 after warm-up) of each kernel, its plain
-    version and one PyTorch library call computing the same function;
+    version and one PyTorch library call computing the same function (for
+    K4 a composite: ``torch.stft`` and the elementwise update);
  6. a ``kernels`` JSON line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
@@ -44,6 +52,18 @@ PEAK_FP32 = 67e12    # H100 SXM fp32 outside the tensor cores, FLOP/s
 PEAK_BF16 = 989e12   # H100 SXM dense bf16, FLOP/s
 HBM_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 TOL = {"highest": 1e-4, "default": 5e-2}  # tests/test_ops.py:213-216
+# K4's bf16 carries: kernel and plain version round fp32 values that differ
+# in the last bits, so an element may land one bf16 step apart; the JAX
+# suite holds the bf16 Griffin-Lim step at 2e-2 (tests/test_ops.py:596)
+CARRY_TOL = {torch.float32: 0.0, torch.bfloat16: 2e-2}
+# |c| against S, elementwise over max S: fp32 rounding, or one bf16 rounding
+# of each component (relative 2^-9 each)
+MAG_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# Griffin-Lim loop against Griffin-Lim loop (tests/test_ops.py:731,782), and
+# its spectral convergence (tests/test_ops.py:647-648)
+GL_TOL = {"highest": 5e-4, "default": 3e-2}
+SC_DELTA, SC_CEILING = 0.05, 0.25
+MOM = 0.99 / 1.99  # Griffin_Lim's momentum 0.99 as the loop applies it
 REPS = 15
 
 
@@ -83,12 +103,74 @@ def cuda_ms(fn, reps=REPS, warmup=3) -> float:
     return float(np.median(times))
 
 
+def gl_step_errors(fk, got, x, wc, ws, S, p_re, p_im, hop, mom):
+    """K4's outputs against its plain version: (r error, c error on the
+    elements where the plain |n| >= 1e-2 rms|n|, max ||c| - S| / max S,
+    elements excluded). Where |n| -> 0 the direction of c = S n/|n| turns
+    with the last bits of the sum, so those elements are held only by |c|."""
+    want = fk.gl_step_plain(x, wc, ws, S, p_re, p_im, hop, mom)
+    re, im = fk.framed_pair_plain(x, wc, ws, hop)
+    n_abs = torch.hypot(re - mom * p_re.float(), -im - mom * p_im.float())
+    keep = n_abs >= 1e-2 * n_abs.square().mean().sqrt()
+    got = [o.float() for o in got]
+    want = [o.float() for o in want]
+    r_err = max(rel_err(got[k], want[k]) for k in (2, 3))
+    c_err = max(float(((got[k] - want[k]).abs() * keep).max() / want[k].abs().max())
+                for k in (0, 1))
+    mag_err = float((torch.hypot(got[0], got[1]) - S).abs().max() / S.max())
+    abs_err = max(float(((got[k] - want[k]).abs() * (keep if k < 2 else 1)).max())
+                  for k in range(4))
+    return r_err, c_err, mag_err, int((~keep).sum()), abs_err
+
+
+def pair_grads(fn, x, wc, ws, hop, g_re, g_im):
+    """Outputs and gradients of a pair function under one random cotangent."""
+    leaves = [t.detach().clone().requires_grad_() for t in (x, wc, ws)]
+    re, im = fn(*leaves, hop)
+    (re * g_re + im * g_im).sum().backward()
+    return [re.detach(), im.detach()] + [t.grad for t in leaves]
+
+
+def profile_path(fn):
+    """Device time by kernel over one call under ``torch.profiler``: (wall ms
+    of the call under the profiler, {kernel name: (ms, launches)})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {e.key: (e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    return wall * 1e3, kernels
+
+
+def harmonic_batch(batch, n, sr, seed, device):
+    """Seeded clips of a tone with three overtones plus a linear sweep, so
+    Griffin-Lim has phase structure to recover (on white noise it has none)."""
+    rng = np.random.RandomState(seed)
+    t = torch.arange(n, device=device, dtype=torch.float64) / sr
+    clips = []
+    for _ in range(batch):
+        f0 = rng.uniform(110, 440)
+        x = sum(torch.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 2 * np.pi)) / k
+                for k in range(1, 5))
+        fa, fb = rng.uniform(200, sr / 4, 2)
+        sweep = fa * t + (fb - fa) * t * t / (2 * float(t[-1]))
+        clips.append(x + 0.5 * torch.sin(2 * np.pi * sweep))
+    return (torch.stack(clips) / 2).float()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 2
     from nnaudio_tpu_torch import config
-    from nnaudio_tpu_torch.features import MelSpectrogram, STFT, iSTFT
+    from nnaudio_tpu_torch.features import (Griffin_Lim, InverseMelSpectrogram,
+                                            MelSpectrogram, STFT, iSTFT)
     from nnaudio_tpu_torch.models import SpectrogramClassifier
     from nnaudio_tpu_torch.ops import build, framed_kernels as fk
 
@@ -132,8 +214,8 @@ def main() -> int:
         ("F 1000, hop 100", 2, 30000, 2048, 100, 1000, 64),
         ("F 201, hop 3", 2, 4000, 400, 3, 201, 256),
     ]
-    max_abs = {"framed_magnitude": 0.0, "framed_filterbank": 0.0,
-               "synthesis_ola": 0.0}  # fp32 storage, at the slice shapes
+    # fp32 storage (and carries), at the slice shapes
+    max_abs = {k: 0.0 for k in fk.LAUNCHES}
     for mode in ("highest", "default"):
         config.set_matmul_precision(mode)
         for label, b, length, n_fft, hop, f, m in cases:
@@ -157,22 +239,56 @@ def main() -> int:
             k3 = fk.synthesis_ola(sre, sim, kc, ks, hop)
             torch.cuda.synchronize()
             p3 = fk.synthesis_ola_plain(sre, sim, kc, ks, hop)
+            # K5 and its backward (dx through K3) against plain autograd
+            g_re, g_im = randn(b, wc.shape[0], t), randn(b, wc.shape[0], t)
+            k5 = pair_grads(fk.framed_pair, x, wc, ws, hop, g_re, g_im)
+            torch.cuda.synchronize()
+            p5 = pair_grads(fk.framed_pair_plain, x, wc, ws, hop, g_re, g_im)
             errs = {"K1": rel_err(k1, p1), "K1 power": rel_err(k1p, p1p),
-                    "K2": rel_err(k2, p2), "K3": rel_err(k3, p3)}
-            if mode == "highest" and label.startswith("slice"):
+                    "K2": rel_err(k2, p2), "K3": rel_err(k3, p3),
+                    "K5": max(rel_err(k5[i], p5[i]) for i in (0, 1)),
+                    "K5 grads": max(rel_err(k5[i], p5[i]) for i in (2, 3, 4))}
+            slice_fp32 = mode == "highest" and label.startswith("slice")
+            if slice_fp32:
                 for k, got, ref in (("framed_magnitude", k1, p1),
                                     ("framed_magnitude", k1p, p1p),
                                     ("framed_filterbank", k2, p2),
-                                    ("synthesis_ola", k3, p3)):
+                                    ("synthesis_ola", k3, p3),
+                                    ("framed_pair", k5[0], p5[0]),
+                                    ("framed_pair", k5[1], p5[1])):
                     max_abs[k] = max(max_abs[k], float((got - ref).abs().max()))
             ok = all(e <= TOL[mode] for e in errs.values())
+            del k1, p1, k1p, p1p, k2, p2, k3, p3, k5, p5, g_re, g_im
+            # K4 in both carry types on random magnitudes and carries
+            S = torch.rand(b, wc.shape[0], t, generator=gen, device=dev)
+            for carry in (torch.float32, torch.bfloat16):
+                p_re = randn(b, wc.shape[0], t).to(carry)
+                p_im = randn(b, wc.shape[0], t).to(carry)
+                k4 = fk.gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)
+                torch.cuda.synchronize()
+                r_err, c_err, mag_err, excluded, abs_err = gl_step_errors(
+                    fk, k4, x, wc, ws, S, p_re, p_im, hop, MOM)
+                tol4 = max(TOL[mode], CARRY_TOL[carry])
+                ok4 = r_err <= tol4 and c_err <= tol4 and mag_err <= MAG_TOL[carry]
+                ok = ok and ok4
+                cname = "fp32" if carry == torch.float32 else "bf16"
+                errs[f"K4 {cname} r"], errs[f"K4 {cname} c"] = r_err, c_err
+                errs[f"K4 {cname} |c|-S"] = mag_err
+                log(f"[check] {mode:8s} {label:16s} K4 {cname} carries: r {r_err:.2e}, "
+                    f"c {c_err:.2e} (tol {tol4:g}) on {S.numel() - excluded} of "
+                    f"{S.numel()} elements ({excluded} excluded where |n| < 1e-2 "
+                    f"rms|n|), max||c|-S|/max S {mag_err:.2e} (tol "
+                    f"{MAG_TOL[carry]:g}) {'ok' if ok4 else 'FAIL'}")
+                if slice_fp32 and carry == torch.float32:
+                    max_abs["gl_step"] = max(max_abs["gl_step"], abs_err)
+                del k4, p_re, p_im
             log(f"[check] {mode:8s} {label:16s} B={b} L={length} n_fft={n_fft} "
                 f"hop={hop} F={wc.shape[0]} M={m} T={t}: "
                 + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-                + f" (tol {TOL[mode]:g}) {'ok' if ok else 'FAIL'}")
+                + f" (tol {TOL[mode]:g}; K4 as above) {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"kernel disagrees with its plain version: {mode} {label}")
-            del x, k1, p1, k1p, p1p, k2, p2, k3, p3, sre, sim
+            del x, sre, sim, S
     config.set_matmul_precision("highest")
 
     # ------------------------------------------------- 4. the serving slice --
@@ -194,9 +310,9 @@ def main() -> int:
     launches = {k: 0 for k in fk.LAUNCHES}
     results = {}
 
-    def drive(label, fn, expect_shape):
-        """Run a path with the counts zeroed, then the same path with the
-        kernels off (the plain path) for comparison."""
+    def counted(label, fn, expect_shape, expect=None):
+        """Run a path with the counts zeroed; check its outputs' shape and
+        finiteness and, where given, its exact launch counts."""
         fk.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -212,14 +328,25 @@ def main() -> int:
                 fail(f"{label}: shape {tuple(o.shape)} != {expect_shape}")
             if not torch.isfinite(o).all():
                 fail(f"{label}: non-finite output")
+        if expect is not None and counts != {k: expect.get(k, 0) for k in counts}:
+            fail(f"{label}: launches {counts}, expected {expect}")
+        return outs, dt, counts
+
+    def plain_path(fn):
         config.set_use_kernels(False)
         try:
-            ref = fn()
+            return fn()
         finally:
             config.set_use_kernels(True)
+
+    def drive(label, fn, expect_shape, tol=None, expect=None):
+        """Run a path with the counts zeroed, then the same path with the
+        kernels off (the plain path) for comparison."""
+        outs, dt, counts = counted(label, fn, expect_shape, expect)
+        ref = plain_path(fn)
         refs = ref if isinstance(ref, list) else [ref]
         err = max(rel_err(o, r) for o, r in zip(outs, refs))
-        tol = TOL[config.get_config().matmul_precision]
+        tol = TOL[config.get_config().matmul_precision] if tol is None else tol
         log(f"[path] {label}: {dt * 1e3:.1f} ms, launches {counts}, "
             f"rel err vs plain path {err:.2e} (tol {tol:g})")
         if err > tol:
@@ -275,6 +402,78 @@ def main() -> int:
     log(f"[path] (d) round-trip max abs error {rt:.2e} (tol 1e-3)")
     if rt > 1e-3:
         fail("iSTFT round trip error above 1e-3")
+
+    # (e) mel -> audio and (f) Griffin-Lim on a seeded harmonic batch
+    xh = harmonic_batch(batch, sr_b * secs, sr_b, 0, dev)
+    mel_e = MelSpectrogram(sr=sr_b, n_fft=1024, hop_length=256, n_mels=80,
+                           verbose=False, device=dev)
+    st_e = STFT(n_fft=1024, hop_length=256, output_format="Magnitude",
+                verbose=False, device=dev)
+    st_f = STFT(n_fft=2048, hop_length=512, output_format="Magnitude",
+                verbose=False, device=dev)
+
+    def inverse_mel(n_iter):
+        return InverseMelSpectrogram(sr=sr_b, n_fft=1024, hop_length=256,
+                                     n_mels=80, n_iter_nnls=64, n_iter=n_iter,
+                                     verbose=False, device=dev)
+
+    def griffin_lim(n_iter):
+        return Griffin_Lim(n_fft=2048, hop_length=512, n_iter=n_iter,
+                           iter_precision="highest", device=dev)
+
+    def spectral_convergence(st, audio, target):
+        rec = st(audio)
+        return float(torch.linalg.vector_norm(rec - target)
+                     / torch.linalg.vector_norm(target))
+
+    shape_e, shape_f = (batch, 861 * 256), (batch, 430 * 512)
+    with torch.no_grad():
+        inv2, gl2 = inverse_mel(2), griffin_lim(2)
+        drive("(e) mel -> audio, 2 Griffin-Lim iterations",
+              lambda: inv2(mel_e(xh)), shape_e, tol=GL_TOL["default"],
+              expect={"framed_filterbank": 1, "gl_step": 2, "synthesis_ola": 3})
+        S_f = st_f(xh)
+        drive("(f) Griffin-Lim fp32, 2 iterations", lambda: gl2(S_f), shape_f,
+              tol=GL_TOL["highest"],
+              expect={"framed_pair": 2, "synthesis_ola": 3})
+
+        n_iter = 32
+        inv, gl = inverse_mel(n_iter), griffin_lim(n_iter)
+        mel = mel_e(xh)
+        target_e = inv.mel_to_power(inv.params, mel).sqrt()
+        for label, fn, shape, st, target, expect in (
+                ("(e) mel -> audio", lambda: inv(mel_e(xh)), shape_e, st_e,
+                 target_e, {"framed_filterbank": 1, "gl_step": n_iter,
+                            "synthesis_ola": n_iter + 1}),
+                ("(f) Griffin-Lim fp32", lambda: gl(S_f), shape_f, st_f, S_f,
+                 {"framed_pair": n_iter, "synthesis_ola": n_iter + 1})):
+            (audio,), dt, counts = counted(label, fn, shape, expect)
+            sc = spectral_convergence(st, audio, target)
+            sc_plain = spectral_convergence(st, plain_path(fn), target)
+            ms = cuda_ms(fn, reps=3, warmup=1)
+            key = label[1]
+            results[f"{key}_audio_s_per_s"] = batch * secs / (ms / 1e3)
+            log(f"[path] {label}, {n_iter} iterations: {dt * 1e3:.1f} ms, "
+                f"launches {counts}; spectral convergence {sc:.4f}, plain path "
+                f"{sc_plain:.4f} (|diff| tol {SC_DELTA}, ceiling {SC_CEILING})")
+            log(f"[serve] ({key}) {batch} x {secs} s in {ms:.3f} ms (CUDA events, "
+                f"median of 3) = {batch * secs / (ms / 1e3):.1f} audio-s/s")
+            if abs(sc - sc_plain) > SC_DELTA or sc > SC_CEILING:
+                fail(f"{label}: spectral convergence {sc} (plain {sc_plain})")
+            wall, kernels = profile_path(fn)
+            busy = sum(k_ms for k_ms, _ in kernels.values())
+            top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+            log(f"[profile] ({key}) one call under torch.profiler: wall {wall:.1f} ms, "
+                + (f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), idle "
+                   f"{100 * (1 - busy / wall):.1f}%; by kernel: "
+                   + "; ".join(f"{name[:60]} {k_ms:.1f} ms x{n}" for name, (k_ms, n) in top)
+                   if kernels else "device time not measured (no CUDA events)"))
+            if key == "e":
+                rt = float(torch.linalg.vector_norm(mel_e(audio) - mel)
+                           / torch.linalg.vector_norm(mel))
+                results["e_mel_round_trip"] = rt
+                log(f"[path] (e) mel-domain round-trip error {rt:.4f}")
+        del inv, gl, inv2, gl2, mel, target_e, S_f, xh
     for k, v in launches.items():
         if v <= 0:
             fail(f"kernel {k} was not launched on the slice's path")
@@ -339,13 +538,42 @@ def main() -> int:
                 flops=4 * batch * t * f * n,
                 bytes=esz * (2 * batch * f * t + 2 * f * n) + 4 * batch * out_len,
                 shape=f"B={batch} F={f} T={t} n_fft={n} hop=512")
+            # K5 at (b)'s shape (the fp32 Griffin-Lim loop's analysis, (f))
+            rows["framed_pair"] = dict(
+                ms=cuda_ms(lambda: fk.framed_pair(x, wc, ws, 512)),
+                plain_ms=cuda_ms(lambda: fk.framed_pair_plain(x, wc, ws, 512)),
+                library_ms=cuda_ms(lambda: torch.view_as_real(
+                    stft_lib(x, 2048, 512, win))),
+                flops=flops, bytes=esz * (b * length + 2 * f * n) + 2 * 4 * b * f * t,
+                shape=f"B={b} L={length} n_fft={n} hop=512 F={f} T={t}")
+            # K4 at (e)'s step shape, bf16 carries: mel -> audio 1024/256,
+            # B=32, T=862, F=513; S is fp32, 2 carries in and 4 out
+            x4 = F.pad(randn(batch, sr_b * secs)[:, None], (512, 512), mode="reflect")[:, 0]
+            b4, length4 = x4.shape
+            f4, n4, t4 = 513, 1024, 862
+            win4 = STFT(n_fft=1024, hop_length=256, verbose=False, device=dev).window_mask
+            S4 = torch.rand(b4, f4, t4, generator=gen, device=dev)
+            p4 = [randn(b4, f4, t4).bfloat16() for _ in range(2)]
+
+            def gl_lib():
+                X = stft_lib(x4, n4, 256, win4)
+                return fk.gl_update(X.real, -X.imag, S4, *p4, MOM)
+            rows["gl_step"] = dict(
+                ms=cuda_ms(lambda: fk.gl_step(x4, wc2, ws2, S4, *p4, 256, MOM)),
+                plain_ms=cuda_ms(lambda: fk.gl_step_plain(x4, wc2, ws2, S4, *p4, 256, MOM)),
+                library_ms=cuda_ms(gl_lib),
+                library="composite: torch.stft + the elementwise update",
+                flops=4 * b4 * t4 * f4 * n4,
+                bytes=esz * (b4 * length4 + 2 * f4 * n4) + (4 + 6 * 2) * b4 * f4 * t4,
+                shape=f"B={b4} L={length4} n_fft={n4} hop=256 F={f4} T={t4}, bf16 carries")
         for k, r in rows.items():
             t_ops, t_bytes = r["flops"] / peak * 1e3, r["bytes"] / HBM_BYTES * 1e3
             r["bound_ms"] = max(t_ops, t_bytes)
             r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
             r["roofline_share"] = r["bound_ms"] / r["ms"]
             log(f"[time] {mode:8s} {k:18s} {r['shape']}: kernel {r['ms']:.3f} ms, "
-                f"plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
+                f"plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms"
+                f"{' (' + r['library'] + ')' if 'library' in r else ''}, "
                 f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
                 f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, roofline share "
                 f"{100 * r['roofline_share']:.1f}%")
@@ -358,17 +586,20 @@ def main() -> int:
                                    "timings": timings}))
 
     # -------------------------------------------------------- 6. summary --
+    # (source, TPU kernel replaced, precision mode of the row: the mode the
+    # kernel runs in on its path; K4 runs inside the bf16 Griffin-Lim loop)
+    analysis = "nnaudio_tpu_torch/csrc/framed_analysis.cu"
     meta = {
-        "framed_magnitude": ("nnaudio_tpu_torch/csrc/framed_analysis.cu",
-                             "nnaudio_tpu/ops/framed_matmul.py:273"),
-        "framed_filterbank": ("nnaudio_tpu_torch/csrc/framed_analysis.cu",
-                              "nnaudio_tpu/ops/framed_matmul.py:296"),
+        "framed_magnitude": (analysis, "nnaudio_tpu/ops/framed_matmul.py:273", "highest"),
+        "framed_filterbank": (analysis, "nnaudio_tpu/ops/framed_matmul.py:296", "highest"),
         "synthesis_ola": ("nnaudio_tpu_torch/csrc/synthesis_ola.cu",
-                          "nnaudio_tpu/ops/framed_matmul.py:878"),
+                          "nnaudio_tpu/ops/framed_matmul.py:878", "highest"),
+        "gl_step": (analysis, "nnaudio_tpu/ops/framed_matmul.py:239", "default"),
+        "framed_pair": (analysis, "nnaudio_tpu/ops/framed_matmul.py:205", "highest"),
     }
     kernels = []
-    for k, (src, replaces) in meta.items():
-        r = timings["highest"][k]
+    for k, (src, replaces, mode) in meta.items():
+        r = timings[mode][k]
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[k], "max_abs_err": max_abs[k],

@@ -1,32 +1,50 @@
-// Framed analysis kernels for Hopper (sm_90a): STFT magnitude / power (K1)
-// and the fused power + filterbank projection (K2).
+// Framed analysis kernels for Hopper (sm_90a): STFT magnitude / power (K1),
+// the fused power + filterbank projection (K2), the plain re/im pair (K5)
+// and the fused Griffin-Lim analysis step (K4).
 //
 // Replaces nnaudio_tpu/ops/framed_matmul.py:
 //   K1  _magnitude_kernel   (launched by _framed_analysis, pair=False)
 //   K2  _filterbank_kernel  (launched by _framed_filterbank)
+//   K5  _pair_kernel        (launched by _framed_analysis, pair=True)
+//   K4  _gl_step_kernel     (launched by _framed_gl_step)
 //
-// Both compute, for the cos and sin bases (F, N) and a signal x (B, L),
+// All compute, for the cos and sin bases (F, N) and a signal x (B, L),
 //   re[b,f,t] = sum_k x[b, t*hop + k] * wcos[f,k]
 //   im[b,f,t] = sum_k x[b, t*hop + k] * wsin[f,k]
 // as an implicit-im2col tiled GEMM: a frame is a strided read of the signal,
 // so any hop >= 1 works and no frame tensor ever exists in device memory.
-// K1 stores sqrt(re^2 + im^2 + eps) (or the power when `square`) as (B,F,T).
-// K2 adds eps to the power tile and projects it onto the filterbank inside
-// the block: out[b,m,t] = sum_f fb[m,f] * (re^2 + im^2 + eps). The (B,F,T)
-// power never reaches device memory.
+// They differ only in the epilogue applied to the (re, im) register tile:
+// - K1 stores sqrt(re^2 + im^2 + eps) (or the power when `square`) as (B,F,T).
+// - K2 adds eps to the power tile and projects it onto the filterbank inside
+//   the block: out[b,m,t] = sum_f fb[m,f] * (re^2 + im^2 + eps). The (B,F,T)
+//   power never reaches device memory.
+// - K5 stores re and im as two (B,F,T) fp32 arrays (the Complex / Phase
+//   STFT outputs and the fp32 Griffin-Lim loop's analysis half).
+// - K4 is one Griffin-Lim iteration's analysis half. With r = (re, -im),
+//   n = r - mom * p and c = S * n * rsqrt(|n|^2 + 1e-32), it stores the next
+//   loop carries c_re, c_im, r_re, r_im in the carry type C (fp32 or bf16),
+//   reading p and S at the same (b,f,t) in the same thread. It works on the
+//   true (B,F,T) carries and masks the ragged tile edge: no padded carries,
+//   no phantom frames. It writes fresh outputs (r is not written over p).
 //
-// Bound on the H100: 4*B*T*F*N flops against (B*L + 2*F*N + B*F*T) * 4 bytes.
-// At the headline (B=32, T=431, F=1025, N=2048) that is 115.8 GFLOP over
-// ~102 MB, about 1100 flop/byte: compute-bound at any storage type. These
-// kernels run FMA on the CUDA cores with fp32 accumulation, so their ceiling
-// is the published fp32 non-tensor peak of the H100 SXM at its 700 W limit,
-// 67 TFLOP/s: a 1.73 ms bound at the headline.
-// Design against that bound: each block stages a BK-deep chunk of its frame
-// tile and both basis tiles in shared memory once, and every thread then
-// runs a 4x4 register micro-tile of both accumulators, i.e. 32 FMAs per 12
-// shared loads. The bases are read once per (frame tile, batch) block and
-// stay in L2 across blocks (a 2048-point bank is 16.8 MB in fp32).
-// Tensor cores (wgmma / 3xTF32) are the next step and are not used here.
+// Bounds on the H100, all from 4*B*T*F*N flops:
+// - K1 at the headline (B=32, T=431, F=1025, N=2048): 115.8 GFLOP over
+//   (B*L + 2*F*N + B*F*T) * 4 bytes ~ 102 MB, about 1100 flop/byte.
+// - K5 at the same shape: 115.8 GFLOP over ~158 MB (two fp32 outputs).
+// - K4 at the mel -> audio step (B=32, T=862, F=513, N=1024): 57.96 GFLOP
+//   over the signal, the bases, S (fp32) and 2 carries in, 4 out (~243 MB
+//   with bf16 storage and carries).
+// These kernels run FMA on the CUDA cores with fp32 accumulation, so in fp32
+// storage their ceiling is the published fp32 non-tensor peak of the H100
+// SXM at its 700 W limit, 67 TFLOP/s, and they are operation-bound (K1 and
+// K5 1.73 ms, K4 0.87 ms). Against the bf16 tensor-core peak the bf16 K4 is
+// byte-bound. Design against the operation bound: each block stages a
+// BK-deep chunk of its frame tile and both basis tiles in shared memory
+// once, and every thread then runs a 4x4 register micro-tile of both
+// accumulators, i.e. 32 FMAs per 12 shared loads. The bases are read once
+// per (frame tile, batch) block and stay in L2 across blocks (a 2048-point
+// bank is 16.8 MB in fp32). Tensor cores (wgmma / 3xTF32) are the next step
+// and are not used here.
 //
 // Storage type S is float (highest, tensorfloat32) or bf16 (default mode);
 // every product accumulates in fp32. Launchers return cudaError_t.
@@ -46,6 +64,8 @@ constexpr int FC = 16;   // filterbank rows staged per projection step (K2)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 struct FrontSmem {
   float a[BK][BT + 1];   // frame tile, k-major; +1 breaks bank conflicts
@@ -210,6 +230,73 @@ __global__ void __launch_bounds__(NT) filterbank_kernel(
   }
 }
 
+// K5: grid (ceil(T/BT), ceil(F/BF), B)
+template <typename S>
+__global__ void __launch_bounds__(NT) pair_kernel(
+    const S* __restrict__ x, const S* __restrict__ wcos,
+    const S* __restrict__ wsin, float* __restrict__ re_out,
+    float* __restrict__ im_out, int L, int N, int hop, int F, int T) {
+  __shared__ FrontSmem sm;
+  const int b = blockIdx.z;
+  const int t0 = blockIdx.x * BT, f0 = blockIdx.y * BF;
+  float re[TM][TN], im[TM][TN];
+  analysis_tile<S>(x + (long long)b * L, wcos, wsin, N, hop, F, T, t0, f0, sm,
+                   re, im);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long base = (long long)b * F * T;
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int f = f0 + ty + 16 * j;
+    if (f >= F) continue;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int t = t0 + tx + 16 * i;
+      if (t >= T) continue;
+      const long long o = base + (long long)f * T + t;
+      re_out[o] = re[i][j];
+      im_out[o] = im[i][j];
+    }
+  }
+}
+
+// K4: grid (ceil(T/BT), ceil(F/BF), B). S is the signal/basis storage type,
+// C the carry type; mag (the target magnitudes) is fp32.
+template <typename S, typename C>
+__global__ void __launch_bounds__(NT) gl_step_kernel(
+    const S* __restrict__ x, const S* __restrict__ wcos,
+    const S* __restrict__ wsin, const float* __restrict__ mag,
+    const C* __restrict__ p_re, const C* __restrict__ p_im,
+    C* __restrict__ c_re, C* __restrict__ c_im, C* __restrict__ r_re,
+    C* __restrict__ r_im, int L, int N, int hop, int F, int T, float mom) {
+  __shared__ FrontSmem sm;
+  const int b = blockIdx.z;
+  const int t0 = blockIdx.x * BT, f0 = blockIdx.y * BF;
+  float re[TM][TN], im[TM][TN];
+  analysis_tile<S>(x + (long long)b * L, wcos, wsin, N, hop, F, T, t0, f0, sm,
+                   re, im);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long base = (long long)b * F * T;
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int f = f0 + ty + 16 * j;
+    if (f >= F) continue;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int t = t0 + tx + 16 * i;
+      if (t >= T) continue;
+      const long long o = base + (long long)f * T + t;
+      const float rr = re[i][j], ri = -im[i][j];  // reference sign convention
+      const float nr = rr - mom * to_f(p_re[o]);
+      const float ni = ri - mom * to_f(p_im[o]);
+      const float scale = mag[o] * rsqrtf(nr * nr + ni * ni + 1e-32f);
+      store(c_re + o, nr * scale);
+      store(c_im + o, ni * scale);
+      store(r_re + o, rr);
+      store(r_im + o, ri);
+    }
+  }
+}
+
 template <typename S>
 cudaError_t launch_magnitude(const void* x, const void* wcos, const void* wsin,
                              void* out, int B, int L, int N, int hop, int F,
@@ -253,6 +340,50 @@ cudaError_t launch_filterbank(const void* x, const void* wcos, const void* wsin,
   return launch_filterbank_mj<S, 16>(x, wcos, wsin, fbT, out, B, L, N, hop, F, T, M, eps, st);
 }
 
+template <typename S>
+cudaError_t launch_pair(const void* x, const void* wcos, const void* wsin,
+                        void* re, void* im, int B, int L, int N, int hop,
+                        int F, int T, cudaStream_t st) {
+  const dim3 grid((T + BT - 1) / BT, (F + BF - 1) / BF, B);
+  pair_kernel<S><<<grid, NT, 0, st>>>(
+      static_cast<const S*>(x), static_cast<const S*>(wcos),
+      static_cast<const S*>(wsin), static_cast<float*>(re),
+      static_cast<float*>(im), L, N, hop, F, T);
+  return cudaGetLastError();
+}
+
+template <typename S, typename C>
+cudaError_t launch_gl_step(const void* x, const void* wcos, const void* wsin,
+                           const void* mag, const void* p_re, const void* p_im,
+                           void* c_re, void* c_im, void* r_re, void* r_im,
+                           int B, int L, int N, int hop, int F, int T,
+                           float mom, cudaStream_t st) {
+  const dim3 grid((T + BT - 1) / BT, (F + BF - 1) / BF, B);
+  gl_step_kernel<S, C><<<grid, NT, 0, st>>>(
+      static_cast<const S*>(x), static_cast<const S*>(wcos),
+      static_cast<const S*>(wsin), static_cast<const float*>(mag),
+      static_cast<const C*>(p_re), static_cast<const C*>(p_im),
+      static_cast<C*>(c_re), static_cast<C*>(c_im), static_cast<C*>(r_re),
+      static_cast<C*>(r_im), L, N, hop, F, T, mom);
+  return cudaGetLastError();
+}
+
+template <typename S>
+cudaError_t launch_gl_step_carry(const void* x, const void* wcos,
+                                 const void* wsin, const void* mag,
+                                 const void* p_re, const void* p_im,
+                                 void* c_re, void* c_im, void* r_re,
+                                 void* r_im, int B, int L, int N, int hop,
+                                 int F, int T, float mom, int carry_bf16,
+                                 cudaStream_t st) {
+  if (carry_bf16)
+    return launch_gl_step<S, __nv_bfloat16>(x, wcos, wsin, mag, p_re, p_im,
+                                            c_re, c_im, r_re, r_im, B, L, N,
+                                            hop, F, T, mom, st);
+  return launch_gl_step<S, float>(x, wcos, wsin, mag, p_re, p_im, c_re, c_im,
+                                  r_re, r_im, B, L, N, hop, F, T, mom, st);
+}
+
 }  // namespace
 
 extern "C" int nnaudio_framed_magnitude(const void* x, const void* wcos,
@@ -279,4 +410,31 @@ extern "C" int nnaudio_framed_filterbank(const void* x, const void* wcos,
                                             hop, F, T, M, eps, st);
   return launch_filterbank<float>(x, wcos, wsin, fbT, out, B, L, N, hop, F, T,
                                   M, eps, st);
+}
+
+extern "C" int nnaudio_framed_pair(const void* x, const void* wcos,
+                                   const void* wsin, void* re, void* im, int B,
+                                   int L, int N, int hop, int F, int T,
+                                   int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_pair<__nv_bfloat16>(x, wcos, wsin, re, im, B, L, N, hop, F,
+                                      T, st);
+  return launch_pair<float>(x, wcos, wsin, re, im, B, L, N, hop, F, T, st);
+}
+
+extern "C" int nnaudio_gl_step(const void* x, const void* wcos,
+                               const void* wsin, const void* mag,
+                               const void* p_re, const void* p_im, void* c_re,
+                               void* c_im, void* r_re, void* r_im, int B,
+                               int L, int N, int hop, int F, int T, float mom,
+                               int bf16, int carry_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_gl_step_carry<__nv_bfloat16>(
+        x, wcos, wsin, mag, p_re, p_im, c_re, c_im, r_re, r_im, B, L, N, hop,
+        F, T, mom, carry_bf16, st);
+  return launch_gl_step_carry<float>(x, wcos, wsin, mag, p_re, p_im, c_re,
+                                     c_im, r_re, r_im, B, L, N, hop, F, T,
+                                     mom, carry_bf16, st);
 }

@@ -1,5 +1,7 @@
 """Spectral feature transforms of the PyTorch port."""
 from .base import SpectralTransform
+from .griffin_lim import Griffin_Lim
+from .inverse_mel import InverseMelSpectrogram, InverseMFCC
 from .mel import MFCC, MelSpectrogram, mfcc_from_db, power_to_db
 from .stft import STFT, hermitian_weights, iSTFT
 
@@ -12,4 +14,7 @@ __all__ = [
     "MFCC",
     "power_to_db",
     "mfcc_from_db",
+    "Griffin_Lim",
+    "InverseMelSpectrogram",
+    "InverseMFCC",
 ]

@@ -5,6 +5,7 @@ from .dispatch import (
     framed_filterbank,
     framed_magnitude,
     framed_power,
+    gl_step,
     synthesis_ola,
 )
 from .framed_kernels import LAUNCHES, reset_launches
@@ -15,6 +16,7 @@ __all__ = [
     "framed_filterbank",
     "framed_magnitude",
     "framed_power",
+    "gl_step",
     "synthesis_ola",
     "LAUNCHES",
     "reset_launches",

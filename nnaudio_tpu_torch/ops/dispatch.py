@@ -1,15 +1,16 @@
 """The framed ops, with the JAX package's signatures.
 
 All compute ``Y[b,f,t] = sum_s x[b, t*hop+s] * W[f,s]`` for the cos and sin
-bases and differ in what they do with the pair:
+bases and differ in what they do with the pair. Each goes to a hand-written
+kernel of :mod:`.framed_kernels` (which takes the plain version for CPU
+tensors), unless the user turned the kernels off (``config.set_use_kernels*``),
+in which case it takes the plain version on every device:
 
-- ``framed_basis_pair`` and ``framed_complex`` are plain torch (unfold +
-  matmul), as the JAX package leaves them to XLA outside any kernel.
-- ``framed_magnitude``, ``framed_power``, ``framed_filterbank`` and
-  ``synthesis_ola`` go to the hand-written kernels of
-  :mod:`.framed_kernels` (which take the plain version for CPU tensors),
-  unless the user turned the kernels off (``config.set_use_kernels*``), in
-  which case they take the plain version on every device.
+- ``framed_basis_pair`` and ``framed_complex``: the pair kernel (K5), whose
+  backward is the JAX package's ``_bwd``;
+- ``framed_magnitude``, ``framed_power``: K1; ``framed_filterbank``: K2;
+- ``synthesis_ola``: K3;
+- ``gl_step``: K4, one Griffin-Lim analysis step.
 """
 from __future__ import annotations
 
@@ -22,13 +23,15 @@ from . import framed_kernels as fk
 def framed_basis_pair(x, wcos, wsin, hop):
     """Signal (B, L) x bases (F, n_fft) -> (real, imag_raw), each (B, F, T).
     ``imag_raw`` is the un-negated sin projection."""
+    if analysis_kernel_enabled():
+        return fk.framed_pair(x, wcos, wsin, hop)
     return fk.framed_pair_plain(x, wcos, wsin, hop)
 
 
 def framed_complex(x, wcos, wsin, scale, hop):
     """Reference-convention Complex stack: ``out[..., 0] = real * s_f``,
     ``out[..., 1] = -imag_raw * s_f``; ``scale`` may be None."""
-    real, imag = fk.framed_pair_plain(x, wcos, wsin, hop)
+    real, imag = framed_basis_pair(x, wcos, wsin, hop)
     if scale is not None:
         s = scale.reshape(1, -1, 1)
         real, imag = real * s, imag * s
@@ -63,3 +66,12 @@ def synthesis_ola(spec_re, spec_im, kc, ks, hop):
     if synthesis_kernel_enabled():
         return fk.synthesis_ola(spec_re, spec_im, kc, ks, hop)
     return fk.synthesis_ola_plain(spec_re, spec_im, kc, ks, hop)
+
+
+def gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom):
+    """One Griffin-Lim analysis step on the signal ``x``: the pair, then
+    ``n = (re, -imag_raw) - mom * p`` and ``c = S * n / |n|``. Returns the
+    next carries ``(c_re, c_im, r_re, r_im)`` in ``p_re``'s dtype."""
+    if analysis_kernel_enabled():
+        return fk.gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom)
+    return fk.gl_step_plain(x, wcos, wsin, S, p_re, p_im, hop, mom)

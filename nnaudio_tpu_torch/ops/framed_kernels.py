@@ -6,6 +6,8 @@ wrapper                      CUDA kernel (``csrc/``)         TPU kernel replaced
 ``framed_magnitude``         ``framed_analysis.cu`` K1       ``_magnitude_kernel``
 ``framed_filterbank``        ``framed_analysis.cu`` K2       ``_filterbank_kernel``
 ``synthesis_ola``            ``synthesis_ola.cu`` K3         ``_synthesis_ola_kernel``
+``gl_step``                  ``framed_analysis.cu`` K4       ``_gl_step_kernel``
+``framed_pair``              ``framed_analysis.cu`` K5       ``_pair_kernel``
 ===========================  ==============================  =====================
 
 A wrapper given a CPU tensor computes its plain version; given a CUDA tensor
@@ -15,15 +17,18 @@ the operands contiguous in the storage type of the precision mode (bf16 in
 launches on the current stream, raises on a nonzero ``cudaError_t``, and
 adds one to its entry of :data:`LAUNCHES`.
 
-The kernel wrappers are ``torch.autograd.Function``s whose backward raises:
-the kernels' gradients come with the training slice. On the CPU the plain
-versions differentiate through autograd.
+The kernel wrappers are ``torch.autograd.Function``s. ``framed_pair`` has
+the JAX package's backward (``dispatch._bwd``): dW as a matmul over chunks of
+frames, dx through the K3 kernel. The other backwards raise: K1-K3's
+gradients come with the training slice, and the Griffin-Lim step has none.
+On the CPU the plain versions differentiate through autograd.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ..config import matmul_numerics, round_to_storage, storage_dtype
 from ..core.apply import apply_basis, project
@@ -31,7 +36,8 @@ from ..core.frame import frame_signal, frames_to_signal, num_frames
 
 #: kernel launches per wrapper, counted where the kernel is launched
 LAUNCHES: dict[str, int] = {"framed_magnitude": 0, "framed_filterbank": 0,
-                            "synthesis_ola": 0}
+                            "synthesis_ola": 0, "gl_step": 0,
+                            "framed_pair": 0}
 
 
 def reset_launches() -> None:
@@ -62,15 +68,68 @@ def framed_filterbank_plain(x, wcos, wsin, fb, hop, eps=0.0):
 
 
 def synthesis_ola_plain(spec_re, spec_im, kc, ks, hop):
-    """OLA(kc^T Re - ks^T Im): (B, F, T) spectra x (F, N) kernels ->
-    (B, N + hop*(T-1)), without window normalisation."""
+    """OLA(kc^T Re - ks^T Im): (B, F, T) spectra (fp32, or bf16 carries) x
+    (F, N) kernels -> (B, N + hop*(T-1)), without window normalisation."""
     with matmul_numerics():
         frames = torch.einsum("fj,bft->btj", round_to_storage(kc),
-                              round_to_storage(spec_re))
+                              round_to_storage(spec_re.float()))
         frames = frames - torch.einsum("fj,bft->btj", round_to_storage(ks),
-                                       round_to_storage(spec_im))
+                                       round_to_storage(spec_im.float()))
     length = kc.shape[1] + hop * (spec_re.shape[-1] - 1)
     return frames_to_signal(frames, hop, length)
+
+
+def gl_update(re, im_raw, S, p_re, p_im, mom):
+    """The Griffin-Lim carry update after the analysis pair: ``r = (re,
+    -im_raw)``, ``n = r - mom * p``, ``c = S * n * rsqrt(|n|^2 + 1e-32)``.
+    Returns ``(c_re, c_im, r_re, r_im)`` in the carry type, ``p``'s dtype."""
+    carry = p_re.dtype
+    r_re, r_im = re, -im_raw
+    n_re = r_re - mom * p_re.float()
+    n_im = r_im - mom * p_im.float()
+    scale = S * torch.rsqrt(n_re * n_re + n_im * n_im + 1e-32)
+    return ((n_re * scale).to(carry), (n_im * scale).to(carry),
+            r_re.to(carry), r_im.to(carry))
+
+
+def gl_step_plain(x, wcos, wsin, S, p_re, p_im, hop, mom):
+    """One Griffin-Lim analysis step: the plain pair, then :func:`gl_update`."""
+    re, im = framed_pair_plain(x, wcos, wsin, hop)
+    return gl_update(re, im, S, p_re, p_im, mom)
+
+
+#: elements of one (B, frames, N) chunk of frames in the pair's dW
+DW_CHUNK_ELEMS = 1 << 26
+
+
+def framed_pair_backward(x, wcos, wsin, g_re, g_im, hop,
+                         needs=(True, True, True)):
+    """Gradients of :func:`framed_pair` w.r.t. ``(x, wcos, wsin)`` (each None
+    where ``needs`` says so), as the JAX package's ``_bwd``: dx is the
+    synthesis of the cotangent spectra on the same bases (the K3 kernel for
+    CUDA tensors), dW a matmul over chunks of frames, so at most
+    :data:`DW_CHUNK_ELEMS` frame samples exist at once."""
+    d_x = d_wc = d_ws = None
+    if needs[0]:
+        d_x = synthesis_ola(g_re, -g_im, wcos, wsin, hop)
+        # the last frame ends at or before the end of the signal
+        d_x = F.pad(d_x, (0, x.shape[-1] - d_x.shape[-1]))
+    if needs[1] or needs[2]:
+        b, f, t = g_re.shape
+        n = wcos.shape[-1]
+        step = max(1, DW_CHUNK_ELEMS // (b * n))
+        d_wc = g_re.new_zeros((f, n))
+        d_ws = g_im.new_zeros((f, n))
+        with matmul_numerics():
+            for t0 in range(0, t, step):
+                t1 = min(t, t0 + step)
+                frames = round_to_storage(
+                    frame_signal(x[:, t0 * hop:(t1 - 1) * hop + n], n, hop))
+                d_wc += torch.einsum("bft,btn->fn",
+                                     round_to_storage(g_re[..., t0:t1]), frames)
+                d_ws += torch.einsum("bft,btn->fn",
+                                     round_to_storage(g_im[..., t0:t1]), frames)
+    return d_x, d_wc, d_ws
 
 
 # ------------------------------------------------------------------ launch --
@@ -89,6 +148,13 @@ _SIGNATURES = {
         "synthesis_ola",
         [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
          _VOID]),
+    "nnaudio_framed_pair": (
+        "framed_analysis",
+        [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
+         _INT, _VOID]),
+    "nnaudio_gl_step": (
+        "framed_analysis",
+        [_VOID] * 10 + [_INT] * 6 + [ctypes.c_float, _INT, _INT, _VOID]),
 }
 _fns: dict[str, object] = {}
 
@@ -116,6 +182,18 @@ def _operand(t: torch.Tensor, name: str, ndim: int, device) -> torch.Tensor:
     return t.to(storage_dtype()).contiguous()
 
 
+def _carry(t: torch.Tensor, name: str, shape, dtype, device) -> torch.Tensor:
+    """A (B, F, T) loop state operand of the Griffin-Lim step, contiguous in
+    ``dtype``."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    return t.to(dtype).contiguous()
+
+
 def _check_cuda(x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(
@@ -139,7 +217,9 @@ def _no_grad_yet(name):
         "(config.set_use_kernels(False)) to differentiate")
 
 
-def _launch_magnitude(x, wcos, wsin, hop, eps, square):
+def _analysis_operands(x, wcos, wsin, hop):
+    """Checked storage-type operands of an analysis kernel, and the dims
+    ``(B, L, N, hop, F, T)`` in the order the launchers take them."""
     _check_cuda(x)
     dev = x.device
     xs = _operand(x, "x", 2, dev)
@@ -154,42 +234,66 @@ def _launch_magnitude(x, wcos, wsin, hop, eps, square):
     t = num_frames(length, n, hop)
     if t < 1:
         raise ValueError(f"signal of {length} samples is shorter than n_fft={n}")
-    out = torch.empty((b, f, t), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    return xs, wc, ws, (b, length, n, hop, f, t)
+
+
+def _launch_magnitude(x, wcos, wsin, hop, eps, square):
+    xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
+    b, _, _, _, f, t = dims
+    out = torch.empty((b, f, t), dtype=torch.float32, device=xs.device)
+    with torch.cuda.device(xs.device):
         _run("nnaudio_framed_magnitude", xs.data_ptr(), wc.data_ptr(),
-             ws.data_ptr(), out.data_ptr(), b, length, n, hop, f, t,
-             float(eps), int(square), int(xs.dtype == torch.bfloat16),
-             _stream())
+             ws.data_ptr(), out.data_ptr(), *dims, float(eps), int(square),
+             int(xs.dtype == torch.bfloat16), _stream())
     LAUNCHES["framed_magnitude"] += 1
     return out
 
 
 def _launch_filterbank(x, wcos, wsin, fb, hop, eps):
-    _check_cuda(x)
-    dev = x.device
-    xs = _operand(x, "x", 2, dev)
-    wc = _operand(wcos, "wcos", 2, dev)
-    ws = _operand(wsin, "wsin", 2, dev)
-    fb_t = _operand(fb.t(), "fb", 2, dev)  # (F, M)
-    if wc.shape != ws.shape or fb_t.shape[0] != wc.shape[0]:
-        raise ValueError(
-            f"shapes differ: wcos {tuple(wc.shape)}, wsin {tuple(ws.shape)}, "
-            f"fb {tuple(fb.shape)}")
-    if hop < 1:
-        raise ValueError(f"hop must be >= 1, got {hop}")
-    b, length = xs.shape
-    f, n = wc.shape
+    xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
+    b, _, _, _, f, t = dims
+    fb_t = _operand(fb.t(), "fb", 2, xs.device)  # (F, M)
+    if fb_t.shape[0] != f:
+        raise ValueError(f"fb {tuple(fb.shape)} does not match {f} bins")
     m = fb_t.shape[1]
-    t = num_frames(length, n, hop)
-    if t < 1:
-        raise ValueError(f"signal of {length} samples is shorter than n_fft={n}")
-    out = torch.empty((b, m, t), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    out = torch.empty((b, m, t), dtype=torch.float32, device=xs.device)
+    with torch.cuda.device(xs.device):
         _run("nnaudio_framed_filterbank", xs.data_ptr(), wc.data_ptr(),
-             ws.data_ptr(), fb_t.data_ptr(), out.data_ptr(), b, length, n, hop,
-             f, t, m, float(eps), int(xs.dtype == torch.bfloat16), _stream())
+             ws.data_ptr(), fb_t.data_ptr(), out.data_ptr(), *dims, m,
+             float(eps), int(xs.dtype == torch.bfloat16), _stream())
     LAUNCHES["framed_filterbank"] += 1
     return out
+
+
+def _launch_pair(x, wcos, wsin, hop):
+    xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
+    b, _, _, _, f, t = dims
+    re = torch.empty((b, f, t), dtype=torch.float32, device=xs.device)
+    im = torch.empty_like(re)
+    with torch.cuda.device(xs.device):
+        _run("nnaudio_framed_pair", xs.data_ptr(), wc.data_ptr(),
+             ws.data_ptr(), re.data_ptr(), im.data_ptr(), *dims,
+             int(xs.dtype == torch.bfloat16), _stream())
+    LAUNCHES["framed_pair"] += 1
+    return re, im
+
+
+def _launch_gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom):
+    xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
+    b, _, _, _, f, t = dims
+    dev, shape, carry = xs.device, (b, f, t), p_re.dtype
+    mag = _carry(S, "S", shape, torch.float32, dev)
+    pr = _carry(p_re, "p_re", shape, carry, dev)
+    pi = _carry(p_im, "p_im", shape, carry, dev)
+    outs = [torch.empty(shape, dtype=carry, device=dev) for _ in range(4)]
+    with torch.cuda.device(dev):
+        _run("nnaudio_gl_step", xs.data_ptr(), wc.data_ptr(), ws.data_ptr(),
+             mag.data_ptr(), pr.data_ptr(), pi.data_ptr(),
+             *(o.data_ptr() for o in outs), *dims, float(mom),
+             int(xs.dtype == torch.bfloat16), int(carry == torch.bfloat16),
+             _stream())
+    LAUNCHES["gl_step"] += 1
+    return tuple(outs)
 
 
 def _launch_synthesis(spec_re, spec_im, kc, ks, hop):
@@ -247,6 +351,32 @@ class _SynthesisOLA(torch.autograd.Function):
         _no_grad_yet("synthesis_ola")
 
 
+class _Pair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wcos, wsin, hop):
+        ctx.save_for_backward(x, wcos, wsin)
+        ctx.hop = hop
+        return _launch_pair(x, wcos, wsin, hop)
+
+    @staticmethod
+    def backward(ctx, g_re, g_im):
+        x, wcos, wsin = ctx.saved_tensors
+        return (*framed_pair_backward(x, wcos, wsin, g_re, g_im, ctx.hop,
+                                      ctx.needs_input_grad[:3]), None)
+
+
+class _GLStep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wcos, wsin, S, p_re, p_im, hop, mom):
+        return _launch_gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the Griffin-Lim step has no gradient: the JAX package's loop "
+            "carries none")
+
+
 # ---------------------------------------------------------------- wrappers --
 def framed_magnitude(x, wcos, wsin, hop, eps=0.0, square=False):
     """K1: |STFT| (or |STFT|^2 when ``square``) -> (B, F, T) float32."""
@@ -267,3 +397,18 @@ def synthesis_ola(spec_re, spec_im, kc, ks, hop):
     if spec_re.device.type == "cpu":
         return synthesis_ola_plain(spec_re, spec_im, kc, ks, hop)
     return _SynthesisOLA.apply(spec_re, spec_im, kc, ks, hop)
+
+
+def framed_pair(x, wcos, wsin, hop):
+    """K5: the STFT pair ``(re, im_raw)``, each (B, F, T) float32."""
+    if x.device.type == "cpu":
+        return framed_pair_plain(x, wcos, wsin, hop)
+    return _Pair.apply(x, wcos, wsin, hop)
+
+
+def gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom):
+    """K4: one Griffin-Lim analysis step -> ``(c_re, c_im, r_re, r_im)``,
+    each (B, F, T) in the carry type of ``p_re`` (float32 or bfloat16)."""
+    if x.device.type == "cpu":
+        return gl_step_plain(x, wcos, wsin, S, p_re, p_im, hop, mom)
+    return _GLStep.apply(x, wcos, wsin, S, p_re, p_im, hop, mom)

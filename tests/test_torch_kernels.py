@@ -2,28 +2,25 @@
 
 Marked ``cuda``: without a CUDA device every test here skips. On a machine
 with one, run ``python -m pytest tests/test_torch_kernels.py -q``;
-``python3 chip_smoke.py`` runs the same checks at the slice's full widths.
+``python3 chip_smoke.py`` runs the same checks at the slice's full widths,
+with the same comparison helpers and tolerances, imported from it here.
 """
 import pytest
 import torch
 
+from chip_smoke import (CARRY_TOL, MAG_TOL, MOM, TOL, gl_step_errors, pair_grads,
+                        rel_err)
 from nnaudio_tpu_torch import config
+from nnaudio_tpu_torch.core.frame import num_frames
 from nnaudio_tpu_torch.ops import framed_kernels as fk
 
 pytestmark = pytest.mark.cuda
-
-TOL = {"highest": 1e-4, "default": 5e-2}  # tests/test_ops.py:213-216
-
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
-
-
-def _rel(a, b):
-    return float((a - b).abs().max() / b.abs().max())
 
 
 @pytest.fixture(params=["highest", "default"])
@@ -50,10 +47,56 @@ def test_kernels_match_plain_versions(cuda, mode, n_fft, hop, f, m):
     sim = torch.randn(2, f, k1.shape[-1], generator=g, device=cuda)
     k3 = fk.synthesis_ola(sre, sim, wc, ws, hop)
     torch.cuda.synchronize()
-    assert all(fk.LAUNCHES[k] == before[k] + 1 for k in before)
-    assert _rel(k1, fk.framed_magnitude_plain(x, wc, ws, hop, eps=1e-8)) <= TOL[mode]
-    assert _rel(k2, fk.framed_filterbank_plain(x, wc, ws, fb, hop, eps=1e-8)) <= TOL[mode]
-    assert _rel(k3, fk.synthesis_ola_plain(sre, sim, wc, ws, hop)) <= TOL[mode]
+    assert all(fk.LAUNCHES[k] == before[k] + 1
+               for k in ("framed_magnitude", "framed_filterbank", "synthesis_ola"))
+    assert rel_err(k1, fk.framed_magnitude_plain(x, wc, ws, hop, eps=1e-8)) <= TOL[mode]
+    assert rel_err(k2, fk.framed_filterbank_plain(x, wc, ws, fb, hop, eps=1e-8)) <= TOL[mode]
+    assert rel_err(k3, fk.synthesis_ola_plain(sre, sim, wc, ws, hop)) <= TOL[mode]
+
+
+@pytest.mark.parametrize("carry", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_fft,hop,f", [(1024, 256, 513), (512, 160, 257),
+                                         (400, 3, 201)])
+def test_gl_step_matches_plain_version(cuda, mode, carry, n_fft, hop, f):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, n_fft + 37 * hop + 5, generator=g, device=cuda)
+    wc = torch.randn(f, n_fft, generator=g, device=cuda) / n_fft ** 0.5
+    ws = torch.randn(f, n_fft, generator=g, device=cuda) / n_fft ** 0.5
+    shape = (2, f, num_frames(x.shape[1], n_fft, hop))
+    S = torch.rand(shape, generator=g, device=cuda)
+    p_re = torch.randn(shape, generator=g, device=cuda).to(carry)
+    p_im = torch.randn(shape, generator=g, device=cuda).to(carry)
+    before = fk.LAUNCHES["gl_step"]
+    got = fk.gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["gl_step"] == before + 1
+    assert all(o.dtype == carry and o.shape == shape for o in got)
+    tol = max(TOL[mode], CARRY_TOL[carry])
+    r_err, c_err, mag_err, _, _ = gl_step_errors(fk, got, x, wc, ws, S, p_re,
+                                                 p_im, hop, MOM)
+    assert r_err <= tol and c_err <= tol, (r_err, c_err)
+    assert mag_err <= MAG_TOL[carry], mag_err
+
+
+@pytest.mark.parametrize("n_fft,hop,f", [(1024, 256, 513), (512, 160, 257),
+                                         (400, 3, 201)])
+def test_pair_and_its_backward_match_plain_autograd(cuda, mode, n_fft, hop, f):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(2, n_fft + 37 * hop + 5, generator=g, device=cuda)
+    wc = torch.randn(f, n_fft, generator=g, device=cuda)
+    ws = torch.randn(f, n_fft, generator=g, device=cuda)
+    shape = (2, f, num_frames(x.shape[1], n_fft, hop))
+    g_re = torch.randn(shape, generator=g, device=cuda)
+    g_im = torch.randn(shape, generator=g, device=cuda)
+
+    before = dict(fk.LAUNCHES)
+    got = pair_grads(fk.framed_pair, x, wc, ws, hop, g_re, g_im)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["framed_pair"] == before["framed_pair"] + 1
+    assert fk.LAUNCHES["synthesis_ola"] == before["synthesis_ola"] + 1  # dx
+    want = pair_grads(fk.framed_pair_plain, x, wc, ws, hop, g_re, g_im)
+    for name, a, b in zip(("re", "im", "dx", "dwcos", "dwsin"), got, want):
+        assert rel_err(a, b) <= TOL[mode], name
 
 
 def test_kernel_backward_raises(cuda):

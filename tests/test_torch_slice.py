@@ -73,10 +73,15 @@ def test_entry_points_refuse_the_cpu_without_a_device_argument():
     of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is available")
-    from nnaudio_tpu_torch.features import MelSpectrogram, STFT, iSTFT
+    from nnaudio_tpu_torch.features import (Griffin_Lim, InverseMelSpectrogram,
+                                            InverseMFCC, MelSpectrogram, STFT,
+                                            iSTFT)
 
     for make in (lambda: STFT(verbose=False), lambda: iSTFT(verbose=False),
                  lambda: MelSpectrogram(verbose=False),
+                 lambda: Griffin_Lim(n_fft=256),
+                 lambda: InverseMelSpectrogram(verbose=False),
+                 lambda: InverseMFCC(verbose=False),
                  lambda: SpectrogramClassifier(),
                  lambda: params_from_jax({"a": np.zeros(2)}, None)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
