@@ -10,7 +10,10 @@ Phases:
     and bf16 storage, at the slice shapes, at hops 160 and 441, at bin counts
     that are no multiple of a tile, and at 64, 128 and 256 mels; the
     Griffin-Lim step (K4) also in fp32 and bf16 carries, and the pair (K5)
-    with its backward against plain autograd;
+    with its backward against plain autograd; the split-K magnitude (K6)
+    against the plain version and against K1 at the CQT shape (84 real
+    wavelets of 16384 samples, B=32 and B=1) and at odd shapes, and K3 at the
+    flat CQT inverse's shape;
  4. the slice through the public entry points, with the launch counts set
     to 0 before each path and read after it:
     (a) the flagship SpectrogramClassifier answering 4 requests of
@@ -21,13 +24,22 @@ Phases:
         harmonic clips at 22.05 kHz, (e) mel -> audio: MelSpectrogram 80
         (1024/256) then InverseMelSpectrogram (64 NNLS + 32 Griffin-Lim
         iterations, bf16 carries), and (f) Griffin_Lim 2048/512 with fp32
-        iterations on (b)'s magnitude. Each output is checked finite, of its
-        shape, against the plain path on the card (Griffin-Lim at 2
-        iterations; at 32 by spectral convergence), and the STFT against a
-        numpy rfft on a small input;
+        iterations on (b)'s magnitude; (g) CQT1992v2 at its defaults (84 bins
+        of 16384 samples, hop 512) on 32 x 10 s and on one 10 s clip,
+        Magnitude, in both modes; (h) its Complex output, and Complex ->
+        ``.inverse`` at sr 22050 / fmin 55 / 48 bins / hop 128 on seeded
+        in-band tones (interior SNR > 40 dB); (i) CQT2010v2 and VQT at their
+        defaults (one pair launch per octave; VQT(gamma=0) equal to
+        CQT2010v2). Each output is checked finite, of its shape, against the
+        plain path on the card (Griffin-Lim at 2 iterations; at 32 by
+        spectral convergence), and the STFT and the CQT against numpy on a
+        small input;
  5. CUDA-event times (median of 15 after warm-up) of each kernel, its plain
     version and one PyTorch library call computing the same function (for
-    K4 a composite: ``torch.stft`` and the elementwise update);
+    K4 a composite: ``torch.stft`` and the elementwise update; for K6 two
+    strided ``F.conv1d`` and ``torch.hypot``), K1 at K6's shapes, and K6
+    over a range of split counts; paths (e)-(i) also print one call's device
+    time by kernel under ``torch.profiler``;
  6. a ``kernels`` JSON line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
@@ -164,13 +176,31 @@ def harmonic_batch(batch, n, sr, seed, device):
     return (torch.stack(clips) / 2).float()
 
 
+def inband_tones(batch, n, sr, seed, device, lo=110.0, hi=660.0):
+    """Seeded clips of five tones between ``lo`` and ``hi`` Hz: material a
+    CQT whose band covers them can be inverted from."""
+    rng = np.random.RandomState(seed)
+    t = torch.arange(n, device=device, dtype=torch.float64) / sr
+    clips = [sum(torch.sin(2 * np.pi * f * t + rng.uniform(0, 2 * np.pi))
+                 for f in rng.uniform(lo, hi, 5)) for _ in range(batch)]
+    return torch.stack(clips).float()
+
+
+def interior_snr_db(x, rec, margin=4096) -> float:
+    """SNR of ``rec`` against ``x`` in dB, away from the clip edges."""
+    core = slice(margin, x.shape[-1] - margin)
+    err = rec[:, core] - x[:, core]
+    return float(10 * torch.log10(x[:, core].square().sum() / err.square().sum()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 2
     from nnaudio_tpu_torch import config
-    from nnaudio_tpu_torch.features import (Griffin_Lim, InverseMelSpectrogram,
-                                            MelSpectrogram, STFT, iSTFT)
+    from nnaudio_tpu_torch.features import (CQT1992v2, CQT2010v2, Griffin_Lim,
+                                            InverseMelSpectrogram,
+                                            MelSpectrogram, STFT, VQT, iSTFT)
     from nnaudio_tpu_torch.models import SpectrogramClassifier
     from nnaudio_tpu_torch.ops import build, framed_kernels as fk
 
@@ -291,6 +321,75 @@ def main() -> int:
             del x, sre, sim, S
     config.set_matmul_precision("highest")
 
+    # K6 against the plain version and against K1 on the same inputs:
+    # (label, B, L, N, hop, F); F None takes CQT1992v2's default wavelets
+    cqt = CQT1992v2(verbose=False, device=dev)  # 84 bins of 16384 samples
+    n_cqt = cqt.kernel_width
+    len_cqt = 22050 * 10 + n_cqt  # 10 s, center-padded
+    filled = float(cqt.lenghts.sum()) / (cqt.lenghts.numel() * n_cqt)
+    log(f"[bank] CQT1992v2 default bank {cqt.lenghts.numel()} x {n_cqt}: atoms of "
+        f"{int(cqt.lenghts.min())} to {int(cqt.lenghts.max())} samples fill "
+        f"{100 * filled:.1f}% of its columns; K6 multiplies all of them")
+    k6_cases = [
+        ("CQT B=32", 32, len_cqt, n_cqt, 512, None),
+        ("CQT B=1", 1, len_cqt, n_cqt, 512, None),
+        ("84 x 8192, hop 512", 2, 16384, 8192, 512, 84),
+        ("64 x 4096, hop 320", 1, 12000, 4096, 320, 64),
+        ("hop 441", 2, 40000, 8192, 441, 96),
+        ("F 1", 2, 30000, 4096, 512, 1),
+        ("F 127", 2, 30000, 4096, 512, 127),
+        ("F 128", 2, 30000, 4096, 512, 128),
+        ("N 5000, hop 100", 2, 9000, 5000, 100, 84),
+        ("T 3 (< one tile)", 2, 4300, 4096, 64, 33),
+    ]
+    for mode in ("highest", "default"):
+        config.set_matmul_precision(mode)
+        for label, b, length, n, hop, f in k6_cases:
+            if f is None:
+                wc, ws = cqt.cqt_kernels_real, cqt.cqt_kernels_imag
+            else:
+                wc, ws = randn(f, n) * 0.05, randn(f, n) * 0.05
+            x = randn(b, length)
+            errs = {}
+            for tag, kw in (("mag", dict(eps=1e-8)), ("power", dict(square=True))):
+                k6 = fk.framed_magnitude_kchunk(x, wc, ws, hop, **kw)
+                torch.cuda.synchronize()
+                k1 = fk.framed_magnitude(x, wc, ws, hop, **kw)
+                torch.cuda.synchronize()
+                p6 = fk.framed_magnitude_plain(x, wc, ws, hop, **kw)
+                errs[f"K6 {tag}"] = rel_err(k6, p6)
+                errs[f"K6 {tag} vs K1"] = rel_err(k6, k1)
+                if mode == "highest" and label == "CQT B=32":
+                    max_abs["framed_magnitude_kchunk"] = max(
+                        max_abs["framed_magnitude_kchunk"],
+                        float((k6 - p6).abs().max()))
+                again = fk.framed_magnitude_kchunk(x, wc, ws, hop, **kw)
+                if not torch.equal(k6, again):
+                    fail(f"K6 is not deterministic: {mode} {label} {tag}")
+                del k6, k1, p6, again
+            splits, kper = fk.kchunk_plan(b, fk.num_frames(length, n, hop), n)
+            ok = all(e <= TOL[mode] for e in errs.values())
+            log(f"[check] {mode:8s} K6 {label:20s} B={b} L={length} N={n} hop={hop} "
+                f"F={wc.shape[0]} T={fk.num_frames(length, n, hop)} splits={splits} "
+                f"x {kper}: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" (tol {TOL[mode]:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"K6 disagrees with its plain version or with K1: {mode} {label}")
+            del x
+        # K3 at the flat CQT inverse's shape: F=84 bins, N=16384, hop 128
+        sre, sim = randn(2, 84, 300), randn(2, 84, 300)
+        kc, ks = randn(84, n_cqt) / n_cqt, randn(84, n_cqt) / n_cqt
+        k3 = fk.synthesis_ola(sre, sim, kc, ks, 128)
+        torch.cuda.synchronize()
+        e3 = rel_err(k3, fk.synthesis_ola_plain(sre, sim, kc, ks, 128))
+        log(f"[check] {mode:8s} K3 at the flat CQT inverse's shape B=2 F=84 T=300 "
+            f"N={n_cqt} hop=128: {e3:.2e} (tol {TOL[mode]:g}) "
+            f"{'ok' if e3 <= TOL[mode] else 'FAIL'}")
+        if e3 > TOL[mode]:
+            fail(f"K3 disagrees with its plain version at the CQT inverse's shape: {mode}")
+        del sre, sim, kc, ks, k3
+    config.set_matmul_precision("highest")
+
     # ------------------------------------------------- 4. the serving slice --
     # a numpy rfft oracle at a small input first
     xs = np.random.RandomState(0).randn(1, 16000).astype(np.float32)
@@ -331,6 +430,18 @@ def main() -> int:
         if expect is not None and counts != {k: expect.get(k, 0) for k in counts}:
             fail(f"{label}: launches {counts}, expected {expect}")
         return outs, dt, counts
+
+    def log_profile(key, fn):
+        """One call of a path under ``torch.profiler``: wall time, device busy
+        and idle share, and the six kernels that took most of it."""
+        wall, kernels = profile_path(fn)
+        busy = sum(k_ms for k_ms, _ in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+        log(f"[profile] ({key}) one call under torch.profiler: wall {wall:.2f} ms, "
+            + (f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}%), idle "
+               f"{100 * (1 - busy / wall):.1f}%; by kernel: "
+               + "; ".join(f"{name[:60]} {k_ms:.2f} ms x{n}" for name, (k_ms, n) in top)
+               if kernels else "device time not measured (no CUDA events)"))
 
     def plain_path(fn):
         config.set_use_kernels(False)
@@ -460,20 +571,106 @@ def main() -> int:
                 f"median of 3) = {batch * secs / (ms / 1e3):.1f} audio-s/s")
             if abs(sc - sc_plain) > SC_DELTA or sc > SC_CEILING:
                 fail(f"{label}: spectral convergence {sc} (plain {sc_plain})")
-            wall, kernels = profile_path(fn)
-            busy = sum(k_ms for k_ms, _ in kernels.values())
-            top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
-            log(f"[profile] ({key}) one call under torch.profiler: wall {wall:.1f} ms, "
-                + (f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), idle "
-                   f"{100 * (1 - busy / wall):.1f}%; by kernel: "
-                   + "; ".join(f"{name[:60]} {k_ms:.1f} ms x{n}" for name, (k_ms, n) in top)
-                   if kernels else "device time not measured (no CUDA events)"))
+            log_profile(key, fn)
             if key == "e":
                 rt = float(torch.linalg.vector_norm(mel_e(audio) - mel)
                            / torch.linalg.vector_norm(mel))
                 results["e_mel_round_trip"] = rt
                 log(f"[path] (e) mel-domain round-trip error {rt:.4f}")
         del inv, gl, inv2, gl2, mel, target_e, S_f, xh
+
+    # a numpy oracle for the CQT through K6: 1 s at the default bank
+    xs = np.random.RandomState(1).randn(1, 22050).astype(np.float32)
+    with torch.no_grad():
+        fk.reset_launches()
+        got = cqt(xs).cpu().numpy()[0]
+    if fk.LAUNCHES["framed_magnitude_kchunk"] != 1:
+        fail("the default CQT1992v2 Magnitude did not go through K6")
+    xp = np.pad(xs[0].astype(np.float64), n_cqt // 2, mode="reflect")
+    n_t = (len(xp) - n_cqt) // 512 + 1
+    frames = np.stack([xp[i * 512:i * 512 + n_cqt] for i in range(n_t)])
+    bank = (cqt.cqt_kernels_real.cpu().numpy().astype(np.float64)
+            - 1j * cqt.cqt_kernels_imag.cpu().numpy().astype(np.float64))
+    oracle = np.abs(bank @ frames.T) * np.sqrt(cqt.lenghts.cpu().numpy())[:, None]
+    e = float(np.abs(got - oracle).max() / oracle.max())
+    log(f"[oracle] CQT1992v2 magnitude (84 x {n_cqt}, hop 512) vs numpy fp64: "
+        f"rel err {e:.2e}")
+    if e > 1e-4:
+        fail("CQT1992v2 disagrees with the numpy oracle")
+
+    # (g) CQT1992v2 at its defaults on 32 x 10 s and on one clip; (h) its
+    # Complex output
+    xg = randn(batch, sr_b * secs)
+    x1 = xg[:1].contiguous()
+    for mode in ("highest", "default"):
+        config.set_matmul_precision(mode)
+        with torch.no_grad():
+            drive(f"(g) CQT1992v2 Magnitude {mode}, {batch} x {secs} s",
+                  lambda: cqt(xg), (batch, 84, 431),
+                  expect={"framed_magnitude_kchunk": 1})
+            drive(f"(g) CQT1992v2 Magnitude {mode}, 1 x {secs} s",
+                  lambda: cqt(x1), (1, 84, 431),
+                  expect={"framed_magnitude_kchunk": 1})
+            ms_g = cuda_ms(lambda: cqt(xg))
+            ms_g1 = cuda_ms(lambda: cqt(x1))
+            if mode == "highest":
+                log_profile("g", lambda: cqt(xg))
+                log_profile("g, one clip", lambda: cqt(x1))
+        results[f"g_{mode}_audio_s_per_s"] = batch * secs / (ms_g / 1e3)
+        results[f"g1_{mode}_audio_s_per_s"] = secs / (ms_g1 / 1e3)
+        log(f"[serve] (g) {mode}: {batch} x {secs} s in {ms_g:.3f} ms = "
+            f"{batch * secs / (ms_g / 1e3):.1f} audio-s/s; one request of 1 x "
+            f"{secs} s in {ms_g1:.3f} ms = {secs / (ms_g1 / 1e3):.1f} audio-s/s")
+    config.set_matmul_precision("highest")
+    with torch.no_grad():
+        drive("(h) CQT1992v2 Complex", lambda: cqt(xg, output_format="Complex"),
+              (batch, 84, 431, 2), expect={"framed_pair": 1})
+        # Complex -> .inverse where the hop respects the shortest atom
+        xt = inband_tones(batch, sr_b * secs, sr_b, 0, dev)
+        cqt_h = CQT1992v2(sr=sr_b, fmin=55, n_bins=48, hop_length=128,
+                          output_format="Complex", verbose=False, device=dev)
+        (rec,), dt = drive(
+            "(h) CQT1992v2 Complex -> inverse, 48 bins, hop 128",
+            lambda: cqt_h.inverse(cqt_h(xt), length=xt.shape[1]),
+            tuple(xt.shape), tol=1e-3,
+            expect={"framed_pair": 1, "synthesis_ola": 1})
+        snr = interior_snr_db(xt, rec)
+        ms_h = cuda_ms(lambda: cqt_h.inverse(cqt_h(xt), length=xt.shape[1]))
+        log_profile("h", lambda: cqt_h.inverse(cqt_h(xt), length=xt.shape[1]))
+    results["h_round_trip_snr_db"] = snr
+    results["h_audio_s_per_s"] = batch * secs / (ms_h / 1e3)
+    log(f"[path] (h) round trip interior SNR {snr:.1f} dB (limit > 40 dB); "
+        f"{batch} x {secs} s in {ms_h:.3f} ms = "
+        f"{batch * secs / (ms_h / 1e3):.1f} audio-s/s")
+    if not snr > 40:
+        fail(f"(h) CQT round trip SNR {snr} dB is not above 40 dB")
+    del rec, xt
+
+    # (i) the pyramid: CQT2010v2 and VQT at their defaults, one pair launch
+    # per octave
+    c2010 = CQT2010v2(verbose=False, device=dev)
+    vqt0 = VQT(verbose=False, device=dev)
+    vqt2 = VQT(gamma=2, verbose=False, device=dev)
+    octaves = {"framed_pair": c2010.n_octaves}
+    with torch.no_grad():
+        (out_c,), _ = drive("(i) CQT2010v2", lambda: c2010(xg), (batch, 84, 431),
+                            expect=octaves)
+        (out_v,), _ = drive("(i) VQT gamma=0", lambda: vqt0(xg), (batch, 84, 431),
+                            expect=octaves)
+        drive("(i) VQT gamma=2", lambda: vqt2(xg), (batch, 84, 431), expect=octaves)
+        if not torch.equal(out_c, out_v):
+            fail("(i) VQT(gamma=0) differs from CQT2010v2")
+        ms_c = cuda_ms(lambda: c2010(xg))
+        ms_v = cuda_ms(lambda: vqt2(xg))
+        log_profile("i, CQT2010v2", lambda: c2010(xg))
+    results["i_cqt2010v2_audio_s_per_s"] = batch * secs / (ms_c / 1e3)
+    results["i_vqt_audio_s_per_s"] = batch * secs / (ms_v / 1e3)
+    log(f"[serve] (i) CQT2010v2 {ms_c:.3f} ms = {batch * secs / (ms_c / 1e3):.1f} "
+        f"audio-s/s; VQT gamma=2 {ms_v:.3f} ms = "
+        f"{batch * secs / (ms_v / 1e3):.1f} audio-s/s; VQT(gamma=0) == CQT2010v2 "
+        "bit for bit")
+    del out_c, out_v, xg, x1
+
     for k, v in launches.items():
         if v <= 0:
             fail(f"kernel {k} was not launched on the slice's path")
@@ -566,6 +763,34 @@ def main() -> int:
                 flops=4 * b4 * t4 * f4 * n4,
                 bytes=esz * (b4 * length4 + 2 * f4 * n4) + (4 + 6 * 2) * b4 * f4 * t4,
                 shape=f"B={b4} L={length4} n_fft={n4} hop=256 F={f4} T={t4}, bf16 carries")
+            # K6 at (g): the CQT1992v2 bank, B=32 and one clip; K1 forced onto
+            # the same inputs, and K6 over a range of split counts
+            wc6, ws6 = cqt.cqt_kernels_real, cqt.cqt_kernels_imag
+            f6, t6 = wc6.shape[0], 431
+            for key, b6 in (("framed_magnitude_kchunk", batch),
+                            ("framed_magnitude_kchunk B=1", 1)):
+                x6 = randn(b6, len_cqt)
+
+                def conv_lib():
+                    xs6 = x6[:, None, :]
+                    return torch.hypot(F.conv1d(xs6, wc6[:, None, :], stride=512),
+                                       F.conv1d(xs6, ws6[:, None, :], stride=512))
+                rows[key] = dict(
+                    ms=cuda_ms(lambda: fk.framed_magnitude_kchunk(x6, wc6, ws6, 512)),
+                    k1_ms=cuda_ms(lambda: fk.framed_magnitude(x6, wc6, ws6, 512)),
+                    plain_ms=cuda_ms(lambda: fk.framed_magnitude_plain(x6, wc6, ws6, 512)),
+                    library_ms=cuda_ms(conv_lib),
+                    library="2 x F.conv1d(stride=hop) + torch.hypot",
+                    flops=4 * b6 * t6 * f6 * n_cqt,
+                    bytes=esz * (b6 * len_cqt + 2 * f6 * n_cqt) + 4 * b6 * f6 * t6,
+                    shape=f"B={b6} L={len_cqt} N={n_cqt} hop=512 F={f6} T={t6}")
+                planned = fk.kchunk_plan(b6, t6, n_cqt)[0]
+                sweep = {s_: cuda_ms(lambda: fk.framed_magnitude_kchunk(
+                    x6, wc6, ws6, 512, splits=s_)) for s_ in (1, 2, 3, 4, 6, 8, 10, 16, 32)}
+                rows[key]["split_sweep_ms"] = sweep
+                log(f"[time] {mode:8s} K6 B={b6} by split count (planned {planned}): "
+                    + ", ".join(f"{s_}: {v:.3f} ms" for s_, v in sweep.items())
+                    + f"; K1 at the same shape {rows[key]['k1_ms']:.3f} ms")
         for k, r in rows.items():
             t_ops, t_bytes = r["flops"] / peak * 1e3, r["bytes"] / HBM_BYTES * 1e3
             r["bound_ms"] = max(t_ops, t_bytes)
@@ -596,6 +821,8 @@ def main() -> int:
                           "nnaudio_tpu/ops/framed_matmul.py:878", "highest"),
         "gl_step": (analysis, "nnaudio_tpu/ops/framed_matmul.py:239", "default"),
         "framed_pair": (analysis, "nnaudio_tpu/ops/framed_matmul.py:205", "highest"),
+        "framed_magnitude_kchunk": ("nnaudio_tpu_torch/csrc/framed_kchunk.cu",
+                                    "nnaudio_tpu/ops/framed_matmul.py:482", "highest"),
     }
     kernels = []
     for k, (src, replaces, mode) in meta.items():

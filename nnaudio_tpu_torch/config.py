@@ -2,8 +2,9 @@
 
 Mirrors ``nnaudio_tpu.config``: the same precision modes and kernel
 switches, with the Pallas switches renamed to the port's hand-written
-kernels. The pyramid, MXU-FFT and parallel-chain switches come with the
-modules that read them (CQT/VQT, CFP).
+kernels. The fused-pyramid, MXU-FFT and parallel-chain switches come with
+the modules that read them (``ops/pyramid``, the parallel chain, CFP); the
+CQT/VQT pyramid runs its serial chain and per-octave loop.
 
 - ``highest``: fp32 operands, fp32 accumulation (TF32 off for plain matmuls).
 - ``default`` (``fast_mode()``): bf16 operand storage, fp32 accumulation.
@@ -98,16 +99,20 @@ def storage_dtype() -> torch.dtype:
 
 @contextlib.contextmanager
 def matmul_numerics():
-    """Plain-path matmul numerics for the current precision mode: fp32
-    (TF32 off) in ``highest``, TF32 in ``tensorfloat32``, and, in
-    ``default``, fp32 matmuls on operands the caller rounded to bf16."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = (
-        _config.matmul_precision == "tensorfloat32")
+    """Plain-path matmul and convolution numerics for the current precision
+    mode: fp32 (TF32 off, for cuBLAS and for cuDNN, whose fp32 convolutions
+    run in TF32 by default) in ``highest``, TF32 in ``tensorfloat32``, and,
+    in ``default``, fp32 products on operands the caller rounded to bf16."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    tf32 = _config.matmul_precision == "tensorfloat32"
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def resolve_device(device) -> torch.device:

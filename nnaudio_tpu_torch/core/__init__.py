@@ -1,4 +1,4 @@
-"""Functional runtime: framing, basis matmuls, overlap-add."""
+"""Functional runtime: framing, basis matmuls, overlap-add, FIR decimation."""
 from .frame import (
     broadcast_dim,
     frame_signal,
@@ -8,9 +8,11 @@ from .frame import (
 )
 from .apply import (
     apply_basis,
+    complex_bank_mul,
     complex_stack,
     magnitude,
     phase_atan,
+    phase_unit_stack,
     project,
 )
 from .overlap import (
@@ -18,6 +20,7 @@ from .overlap import (
     normalize_by_window_envelope,
     window_sumsquare,
 )
+from .resample import downsample_by_2, downsample_by_n
 
 __all__ = [
     "broadcast_dim",
@@ -26,10 +29,14 @@ __all__ = [
     "num_frames",
     "pad_signal",
     "apply_basis",
+    "complex_bank_mul",
     "complex_stack",
     "magnitude",
     "phase_atan",
+    "phase_unit_stack",
     "project",
+    "downsample_by_2",
+    "downsample_by_n",
     "extend_fbins",
     "normalize_by_window_envelope",
     "window_sumsquare",

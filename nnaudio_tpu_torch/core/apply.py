@@ -1,7 +1,8 @@
 """Basis application and spectrogram output heads.
 
 Output formats keep the reference's conventions: ``Complex`` stacks
-``(real, -imag)`` and STFT ``Phase`` is a scalar ``atan2``.
+``(real, -imag)``, STFT ``Phase`` is a scalar ``atan2`` and the CQT family's
+``Phase`` a ``(cos, sin)`` stack.
 """
 from __future__ import annotations
 
@@ -41,3 +42,31 @@ def phase_atan(real: torch.Tensor, imag: torch.Tensor) -> torch.Tensor:
     """Scalar phase via atan2; ``+0.0`` scrubs -0.0 exactly like the
     reference."""
     return torch.atan2(imag + 0.0, real)
+
+
+def phase_unit_stack(real: torch.Tensor, imag: torch.Tensor) -> torch.Tensor:
+    """(cos theta, sin theta) stack used by the CQT family."""
+    theta = torch.atan2(imag, real)
+    return torch.stack((torch.cos(theta), torch.sin(theta)), dim=-1)
+
+
+def complex_bank_mul(
+    kernel_real: torch.Tensor,
+    kernel_imag: torch.Tensor,
+    spec_real: torch.Tensor,
+    spec_imag: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Complex matmul (a+bi)(c+di) of a (F_out, F_in) kernel bank with
+    (B, F_in, T) spectra, as one stacked real product
+    ``[[kr, -ki], [ki, kr]] @ [fr; fi]`` that reads the spectra once."""
+    bank = torch.cat(
+        (
+            torch.cat((kernel_real, -kernel_imag), dim=1),
+            torch.cat((kernel_imag, kernel_real), dim=1),
+        ),
+        dim=0,
+    )
+    spec = torch.cat((spec_real, spec_imag), dim=1)
+    out = project(bank, spec)
+    f_out = kernel_real.shape[0]
+    return out[:, :f_out], out[:, f_out:]

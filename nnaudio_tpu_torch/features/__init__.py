@@ -1,9 +1,11 @@
 """Spectral feature transforms of the PyTorch port."""
 from .base import SpectralTransform
+from .cqt import CQT, CQT1992, CQT1992v2, CQT2010, CQT2010v2
 from .griffin_lim import Griffin_Lim
 from .inverse_mel import InverseMelSpectrogram, InverseMFCC
 from .mel import MFCC, MelSpectrogram, mfcc_from_db, power_to_db
 from .stft import STFT, hermitian_weights, iSTFT
+from .vqt import VQT
 
 __all__ = [
     "SpectralTransform",
@@ -17,4 +19,10 @@ __all__ = [
     "Griffin_Lim",
     "InverseMelSpectrogram",
     "InverseMFCC",
+    "CQT1992",
+    "CQT1992v2",
+    "CQT",
+    "CQT2010",
+    "CQT2010v2",
+    "VQT",
 ]

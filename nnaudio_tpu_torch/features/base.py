@@ -3,8 +3,10 @@
 Trainable kernels are ``nn.Parameter``s, frozen ones buffers, registered
 under the same flat names as the JAX package's ``state_dict()`` keys, so a
 snapshot of one loads into the other: ``nn.Module.state_dict`` and
-``load_state_dict(strict)`` as they are, and
-:func:`nnaudio_tpu_torch.interop.load_jax_state` for numpy snapshots.
+``load_state_dict(strict)``, and
+:func:`nnaudio_tpu_torch.interop.load_jax_state` for numpy snapshots. After
+either, and after ``update_params``, the ``_refresh_derived`` hook lets a
+transform drop what it derived from the old values.
 Every forward reads its tensors from an explicit ``params`` dict, which makes
 ``apply(params, x)`` a functional call with any subset of the tensors
 overridden.
@@ -91,6 +93,26 @@ class SpectralTransform(nn.Module):
                 raise KeyError(f"unknown parameter {k!r}")
             with torch.no_grad():
                 own[k].copy_(to_float32(v, own[k].device))
+        self._refresh_derived(set(new_params))
+
+    # ------------------------------------------------------------ derived --
+    def _refresh_derived(self, changed: set) -> None:
+        """Hook: recompute or drop what is derived from the tensors named in
+        ``changed``, after they were persistently updated (``update_params``
+        / ``load_state_dict``). Default: nothing is derived."""
+
+    def _derived_state_key(self, key: str) -> bool:
+        """Hook: whether ``key`` of a snapshot names an array that is a pure
+        function of the state (older JAX snapshots stored some). Such keys
+        are accepted by ``load_state_dict`` and ignored."""
+        return False
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        state = {k: v for k, v in state_dict.items()
+                 if not self._derived_state_key(k)}
+        result = super().load_state_dict(state, strict=strict, assign=assign)
+        self._refresh_derived(set(state) & set(self.params))
+        return result
 
     # ------------------------------------------------------------ forward --
     def _forward(self, params: Mapping[str, torch.Tensor], x: torch.Tensor, **kw):

@@ -13,6 +13,15 @@ from .mel import (
     mel_frequencies,
     mel_to_hz,
 )
+from .cqt import (
+    CQTKernelBank,
+    cqt_frequencies,
+    create_cqt_kernels,
+    create_lowpass_filter,
+    early_downsample_count,
+    early_downsample_params,
+    next_pow2_exponent,
+)
 from .windows import pad_center, window_dispatch
 
 __all__ = [
@@ -25,6 +34,13 @@ __all__ = [
     "mel_filterbank",
     "mel_frequencies",
     "mel_to_hz",
+    "CQTKernelBank",
+    "cqt_frequencies",
+    "create_cqt_kernels",
+    "create_lowpass_filter",
+    "early_downsample_count",
+    "early_downsample_params",
+    "next_pow2_exponent",
     "pad_center",
     "window_dispatch",
 ]

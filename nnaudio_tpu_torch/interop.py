@@ -28,7 +28,9 @@ def load_jax_state(module: nn.Module, state: Mapping[str, np.ndarray],
                    strict: bool = True):
     """Load a JAX ``state_dict()`` (or params dict) into ``module``, each
     tensor onto the device of the tensor it replaces. ``strict=True`` raises
-    on missing or unexpected keys."""
+    on missing or unexpected keys; keys that name derived arrays (a pyramid
+    snapshot's legacy ``lowpass_cascade_k``) are accepted and ignored by the
+    transform's ``load_state_dict``."""
     own = module.state_dict()
     tensors = {k: to_float32(v, own[k].device if k in own else "cpu")
                for k, v in state.items()}

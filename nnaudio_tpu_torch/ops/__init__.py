@@ -1,11 +1,13 @@
 """Framed ops and the CUDA kernels behind them."""
 from .dispatch import (
+    KCHUNK_MIN_N,
     framed_basis_pair,
     framed_complex,
     framed_filterbank,
     framed_magnitude,
     framed_power,
     gl_step,
+    kchunk_envelope,
     synthesis_ola,
 )
 from .framed_kernels import LAUNCHES, reset_launches
@@ -18,6 +20,8 @@ __all__ = [
     "framed_power",
     "gl_step",
     "synthesis_ola",
+    "KCHUNK_MIN_N",
+    "kchunk_envelope",
     "LAUNCHES",
     "reset_launches",
 ]

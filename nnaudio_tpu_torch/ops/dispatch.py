@@ -8,7 +8,9 @@ in which case it takes the plain version on every device:
 
 - ``framed_basis_pair`` and ``framed_complex``: the pair kernel (K5), whose
   backward is the JAX package's ``_bwd``;
-- ``framed_magnitude``, ``framed_power``: K1; ``framed_filterbank``: K2;
+- ``framed_magnitude``, ``framed_power``: K6, the split-K form of K1, for a
+  bank of at most 128 bins and at least :data:`KCHUNK_MIN_N` samples (the CQT
+  family's wavelet banks), else K1; ``framed_filterbank``: K2;
 - ``synthesis_ola``: K3;
 - ``gl_step``: K4, one Griffin-Lim analysis step.
 """
@@ -18,6 +20,26 @@ import torch
 
 from ..config import analysis_kernel_enabled, synthesis_kernel_enabled
 from . import framed_kernels as fk
+
+
+#: least contraction length (samples per frame) at which the magnitude ops
+#: take K6 instead of K1. The smaller of the JAX suite's two K6 cases; no
+#: H100 measurement has moved it yet (``chip_smoke.py`` times both kernels
+#: at the same shapes).
+KCHUNK_MIN_N = 4096
+
+
+def kchunk_envelope(f: int, n: int) -> bool:
+    """Whether a bank of ``f`` bins of ``n`` samples goes to K6."""
+    return f <= fk.KCHUNK_MAX_F and n >= KCHUNK_MIN_N
+
+
+def _magnitude(x, wcos, wsin, hop, eps, square):
+    if not analysis_kernel_enabled():
+        return fk.framed_magnitude_plain(x, wcos, wsin, hop, eps=eps, square=square)
+    if kchunk_envelope(*wcos.shape):
+        return fk.framed_magnitude_kchunk(x, wcos, wsin, hop, eps=eps, square=square)
+    return fk.framed_magnitude(x, wcos, wsin, hop, eps=eps, square=square)
 
 
 def framed_basis_pair(x, wcos, wsin, hop):
@@ -40,16 +62,12 @@ def framed_complex(x, wcos, wsin, scale, hop):
 
 def framed_magnitude(x, wcos, wsin, hop, eps=0.0):
     """``sqrt((x*wcos)^2 + (x*wsin)^2 + eps)`` -> (B, F, T)."""
-    if analysis_kernel_enabled():
-        return fk.framed_magnitude(x, wcos, wsin, hop, eps=eps)
-    return fk.framed_magnitude_plain(x, wcos, wsin, hop, eps=eps)
+    return _magnitude(x, wcos, wsin, hop, eps, False)
 
 
 def framed_power(x, wcos, wsin, hop):
     """Power spectrum ``(x*wcos)^2 + (x*wsin)^2`` -> (B, F, T)."""
-    if analysis_kernel_enabled():
-        return fk.framed_magnitude(x, wcos, wsin, hop, square=True)
-    return fk.framed_magnitude_plain(x, wcos, wsin, hop, square=True)
+    return _magnitude(x, wcos, wsin, hop, 0.0, True)
 
 
 def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0):

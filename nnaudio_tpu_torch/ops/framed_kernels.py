@@ -8,7 +8,11 @@ wrapper                      CUDA kernel (``csrc/``)         TPU kernel replaced
 ``synthesis_ola``            ``synthesis_ola.cu`` K3         ``_synthesis_ola_kernel``
 ``gl_step``                  ``framed_analysis.cu`` K4       ``_gl_step_kernel``
 ``framed_pair``              ``framed_analysis.cu`` K5       ``_pair_kernel``
+``framed_magnitude_kchunk``  ``framed_kchunk.cu`` K6         ``_magnitude_kchunk_kernel``
 ===========================  ==============================  =====================
+
+K1 and K6 compute one function, ``framed_magnitude_plain``: K6 is its
+split-K form for a bank of at most 128 bins and a long contraction.
 
 A wrapper given a CPU tensor computes its plain version; given a CUDA tensor
 it launches its kernel or raises. It checks device, dtype and shape, makes
@@ -19,8 +23,9 @@ adds one to its entry of :data:`LAUNCHES`.
 
 The kernel wrappers are ``torch.autograd.Function``s. ``framed_pair`` has
 the JAX package's backward (``dispatch._bwd``): dW as a matmul over chunks of
-frames, dx through the K3 kernel. The other backwards raise: K1-K3's
-gradients come with the training slice, and the Griffin-Lim step has none.
+frames, dx through the K3 kernel. The other backwards raise: the gradients
+of K1-K3 and K6 come with the training slice, and the Griffin-Lim step has
+none.
 On the CPU the plain versions differentiate through autograd.
 """
 from __future__ import annotations
@@ -37,7 +42,7 @@ from ..core.frame import frame_signal, frames_to_signal, num_frames
 #: kernel launches per wrapper, counted where the kernel is launched
 LAUNCHES: dict[str, int] = {"framed_magnitude": 0, "framed_filterbank": 0,
                             "synthesis_ola": 0, "gl_step": 0,
-                            "framed_pair": 0}
+                            "framed_pair": 0, "framed_magnitude_kchunk": 0}
 
 
 def reset_launches() -> None:
@@ -155,6 +160,9 @@ _SIGNATURES = {
     "nnaudio_gl_step": (
         "framed_analysis",
         [_VOID] * 10 + [_INT] * 6 + [ctypes.c_float, _INT, _INT, _VOID]),
+    "nnaudio_framed_magnitude_kchunk": (
+        "framed_kchunk",
+        [_VOID] * 6 + [_INT] * 8 + [ctypes.c_float, _INT, _INT, _VOID]),
 }
 _fns: dict[str, object] = {}
 
@@ -249,6 +257,59 @@ def _launch_magnitude(x, wcos, wsin, hop, eps, square):
     return out
 
 
+#: K6 takes banks of at most this many bins (one bin tile per block)
+KCHUNK_MAX_F = 128
+#: frames per block tile and K chunk of ``csrc/framed_kchunk.cu``
+KCHUNK_BT, KCHUNK_BK = 64, 16
+#: K6 cuts K until the grid has this many blocks (sixteen per SM of an H100:
+#: many small blocks leave a short tail behind the last full wave) ...
+KCHUNK_TARGET_BLOCKS = 16 * 132
+#: ... but leaves every split at least this many samples of K
+KCHUNK_MIN_SPLIT_K = 512
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def kchunk_plan(b: int, t: int, n: int, splits: int | None = None) -> tuple[int, int]:
+    """``(splits, kper)`` of K6 for a batch of ``b`` signals, ``t`` frames and
+    a contraction of ``n`` samples: a function of the shapes alone. Split
+    ``s`` sums the samples ``[s * kper, min(n, (s + 1) * kper))``; ``kper``
+    is a multiple of the kernel's K chunk and no split is empty. ``splits``
+    asks for a split count instead of the planned one."""
+    if splits is None:
+        base = b * _ceil_div(t, KCHUNK_BT)
+        splits = min(_ceil_div(KCHUNK_TARGET_BLOCKS, base),
+                     n // KCHUNK_MIN_SPLIT_K)
+    splits = max(1, min(splits, _ceil_div(n, KCHUNK_BK)))
+    kper = _ceil_div(_ceil_div(n, splits), KCHUNK_BK) * KCHUNK_BK
+    return _ceil_div(n, kper), kper
+
+
+def _launch_magnitude_kchunk(x, wcos, wsin, hop, eps, square, splits=None):
+    xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
+    b, _, n, _, f, t = dims
+    if f > KCHUNK_MAX_F:
+        raise ValueError(
+            f"the split-K magnitude kernel takes at most {KCHUNK_MAX_F} bins, "
+            f"got {f}")
+    splits, kper = kchunk_plan(b, t, n, splits)
+    out = torch.empty((b, f, t), dtype=torch.float32, device=xs.device)
+    # the partial (re, im) of every split; one split needs none
+    work = (torch.empty((2, splits, b, f, t), dtype=torch.float32,
+                        device=xs.device) if splits > 1 else None)
+    with torch.cuda.device(xs.device):
+        _run("nnaudio_framed_magnitude_kchunk", xs.data_ptr(), wc.data_ptr(),
+             ws.data_ptr(), out.data_ptr(),
+             work[0].data_ptr() if splits > 1 else None,
+             work[1].data_ptr() if splits > 1 else None,
+             *dims, splits, kper, float(eps), int(square),
+             int(xs.dtype == torch.bfloat16), _stream())
+    LAUNCHES["framed_magnitude_kchunk"] += 1
+    return out
+
+
 def _launch_filterbank(x, wcos, wsin, fb, hop, eps):
     xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
     b, _, _, _, f, t = dims
@@ -331,6 +392,16 @@ class _Magnitude(torch.autograd.Function):
         _no_grad_yet("framed_magnitude")
 
 
+class _MagnitudeKchunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wcos, wsin, hop, eps, square, splits):
+        return _launch_magnitude_kchunk(x, wcos, wsin, hop, eps, square, splits)
+
+    @staticmethod
+    def backward(ctx, g):
+        _no_grad_yet("framed_magnitude_kchunk")
+
+
 class _Filterbank(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wcos, wsin, fb, hop, eps):
@@ -383,6 +454,17 @@ def framed_magnitude(x, wcos, wsin, hop, eps=0.0, square=False):
     if x.device.type == "cpu":
         return framed_magnitude_plain(x, wcos, wsin, hop, eps=eps, square=square)
     return _Magnitude.apply(x, wcos, wsin, hop, eps, square)
+
+
+def framed_magnitude_kchunk(x, wcos, wsin, hop, eps=0.0, square=False,
+                            splits=None):
+    """K6: the function of K1 for a bank of at most 128 bins and a long
+    contraction, split over K -> (B, F, T) float32. ``splits`` overrides the
+    planned split count (:func:`kchunk_plan`); the result does not depend on
+    it beyond fp32 summation order."""
+    if x.device.type == "cpu":
+        return framed_magnitude_plain(x, wcos, wsin, hop, eps=eps, square=square)
+    return _MagnitudeKchunk.apply(x, wcos, wsin, hop, eps, square, splits)
 
 
 def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0):

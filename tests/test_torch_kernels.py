@@ -99,9 +99,46 @@ def test_pair_and_its_backward_match_plain_autograd(cuda, mode, n_fft, hop, f):
         assert rel_err(a, b) <= TOL[mode], name
 
 
-def test_kernel_backward_raises(cuda):
-    x = torch.randn(1, 4096, device=cuda)
-    w = torch.randn(65, 128, device=cuda, requires_grad=True)
-    out = fk.framed_magnitude(x, w, w, 32)
+@pytest.mark.parametrize("length,n,hop,f,splits", [
+    (16384, 8192, 512, 84, None),   # the JAX suite's two K6 cases
+    (12000, 4096, 320, 64, None),
+    (9000, 5000, 100, 127, None),   # an N that no split divides
+    (9000, 5000, 100, 128, 7),
+    (30000, 4096, 441, 1, None),
+    (4300, 4096, 64, 33, None),     # T below one tile
+    (16384, 8192, 512, 84, 1),      # one split: K1's arithmetic
+])
+def test_kchunk_matches_plain_version_and_k1(cuda, mode, length, n, hop, f, splits):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, length, generator=g, device=cuda)
+    wc = torch.randn(f, n, generator=g, device=cuda) * 0.05
+    ws = torch.randn(f, n, generator=g, device=cuda) * 0.05
+    before = dict(fk.LAUNCHES)
+    for kw in (dict(eps=1e-8), dict(square=True)):
+        k6 = fk.framed_magnitude_kchunk(x, wc, ws, hop, splits=splits, **kw)
+        k1 = fk.framed_magnitude(x, wc, ws, hop, **kw)
+        torch.cuda.synchronize()
+        assert rel_err(k6, fk.framed_magnitude_plain(x, wc, ws, hop, **kw)) <= TOL[mode]
+        assert rel_err(k6, k1) <= TOL[mode]
+        if splits == 1:
+            assert torch.equal(k6, k1)
+        # no atomics: a second launch gives the same bits
+        assert torch.equal(k6, fk.framed_magnitude_kchunk(x, wc, ws, hop, splits=splits, **kw))
+    assert fk.LAUNCHES["framed_magnitude_kchunk"] == before["framed_magnitude_kchunk"] + 4
+    assert fk.LAUNCHES["framed_magnitude"] == before["framed_magnitude"] + 2
+
+
+def test_kchunk_rejects_wide_banks(cuda):
+    x = torch.randn(1, 8192, device=cuda)
+    w = torch.randn(129, 4096, device=cuda)
+    with pytest.raises(ValueError, match="at most 128 bins"):
+        fk.framed_magnitude_kchunk(x, w, w, 64)
+
+
+@pytest.mark.parametrize("wrapper", [fk.framed_magnitude, fk.framed_magnitude_kchunk])
+def test_kernel_backward_raises(cuda, wrapper):
+    x = torch.randn(1, 8192, device=cuda)
+    w = torch.randn(65, 4096, device=cuda, requires_grad=True)
+    out = wrapper(x, w, w, 32)
     with pytest.raises(NotImplementedError, match="training slice"):
         out.sum().backward()

@@ -5,14 +5,19 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from nnaudio_tpu.core import apply as japply
 from nnaudio_tpu.core import frame as jframe
 from nnaudio_tpu.core import overlap as joverlap
+from nnaudio_tpu.core import resample as jresample
 from nnaudio_tpu.features.stft import hermitian_weights as j_hermitian_weights
 from nnaudio_tpu.filters.fourier import create_fourier_basis
 from nnaudio_tpu.ops import dispatch as jd
 from nnaudio_tpu.ops import framed_matmul
+from nnaudio_tpu_torch.core import apply as tapply
 from nnaudio_tpu_torch.core import frame as tframe
 from nnaudio_tpu_torch.core import overlap as toverlap
+from nnaudio_tpu_torch.core import resample as tresample
+from nnaudio_tpu_torch.filters import create_lowpass_filter
 from nnaudio_tpu_torch.ops import dispatch as td
 from nnaudio_tpu_torch.ops import framed_kernels as fk
 
@@ -195,6 +200,118 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="CUDA tensors"):
         fk._launch_magnitude(x, w, w, 32, 0.0, False)
     with pytest.raises(ValueError, match="CUDA tensors"):
+        fk._launch_magnitude_kchunk(x, torch.zeros(65, 4096), torch.zeros(65, 4096),
+                                    32, 0.0, False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
         fk._launch_synthesis(torch.zeros(1, 65, 4), torch.zeros(1, 65, 4), w, w, 32)
     with pytest.raises(TypeError, match="float32"):
         fk._operand(torch.zeros(2, 3, dtype=torch.float64), "x", 2, torch.device("cpu"))
+
+
+def test_cqt_output_helpers_match_jax():
+    rng = np.random.RandomState(11)
+    re, im = rng.randn(2, 5, 7).astype(np.float32), rng.randn(2, 5, 7).astype(np.float32)
+    _close(tapply.phase_unit_stack(torch.from_numpy(re), torch.from_numpy(im)),
+           japply.phase_unit_stack(jnp.asarray(re), jnp.asarray(im)), 1e-6)
+    kr, ki = rng.randn(4, 5).astype(np.float32), rng.randn(4, 5).astype(np.float32)
+    got = tapply.complex_bank_mul(*map(torch.from_numpy, (kr, ki, re, im)))
+    want = japply.complex_bank_mul(*map(jnp.asarray, (kr, ki, re, im)))
+    for g, w in zip(got, want):
+        _close(g, w, 1e-5)
+
+
+@pytest.mark.parametrize("length,n,pad", [
+    (1000, 2, None), (1001, 2, None), (999, 4, None), (4097, 4, None),
+    (5000, 4, 127 * 3), (300, 2, 0), (255, 2, None),
+])
+def test_downsample_by_n_matches_jax(length, n, pad):
+    x = np.random.RandomState(12).randn(2, length).astype(np.float32)
+    fir = create_lowpass_filter(1 / n, 256, 0.03 if n > 2 else 0.001)
+    got = tresample.downsample_by_n(torch.from_numpy(x), torch.from_numpy(fir), n, pad=pad)
+    _close(got, jresample.downsample_by_n(jnp.asarray(x), jnp.asarray(fir), n, pad=pad), 1e-5)
+    if n == 2 and pad is None:
+        assert torch.equal(got, tresample.downsample_by_2(torch.from_numpy(x), torch.from_numpy(fir)))
+
+
+@pytest.mark.parametrize("length", [0, 1])
+def test_downsample_by_n_of_a_signal_shorter_than_the_fir_is_empty(length):
+    fir = create_lowpass_filter(0.5, 256, 0.001)
+    x = np.zeros((3, length), np.float32)
+    got = tresample.downsample_by_n(torch.from_numpy(x), torch.from_numpy(fir), 2)
+    want = jresample.downsample_by_n(jnp.asarray(x), jnp.asarray(fir), 2)
+    assert tuple(got.shape) == tuple(want.shape) == (3, 0)
+
+
+@pytest.mark.parametrize("batch,length,f,n,hop,kw", [
+    (2, 16384, 84, 8192, 512, dict()),
+    (2, 16384, 84, 8192, 512, dict(square=True, eps=1e-8)),
+    (1, 12000, 64, 4096, 320, dict()),
+])
+def test_kchunk_plain_version_matches_interpreted_pallas(batch, length, f, n, hop, kw):
+    """K6's contract: ``framed_magnitude_plain`` against the Pallas K-chunked
+    kernel itself (interpreted), at the JAX suite's two cases."""
+    rng = np.random.RandomState(40)
+    x = rng.randn(batch, length).astype(np.float32)
+    wcos = (rng.randn(f, n) * 0.05).astype(np.float32)
+    wsin = (rng.randn(f, n) * 0.05).astype(np.float32)
+    plan = framed_matmul._plan_kchunk(batch, n, f, (length - n) // hop + 1, hop, True)
+    assert plan is not None and plan["nk"] > 1
+    want = _interpreted(framed_matmul._framed_magnitude_kchunk, jnp.asarray(x),
+                        jnp.asarray(wcos).T, jnp.asarray(wsin).T, hop,
+                        highest=True, **kw, **plan)
+    tx, tc, ts = map(torch.from_numpy, (x, wcos, wsin))
+    _close(fk.framed_magnitude_plain(tx, tc, ts, hop, **kw), want)
+    # the wrapper takes the plain version for CPU tensors and counts nothing
+    before = dict(fk.LAUNCHES)
+    _close(fk.framed_magnitude_kchunk(tx, tc, ts, hop, **kw), want)
+    assert fk.LAUNCHES == before
+
+
+def test_magnitude_dispatch_routes_agree_on_cpu(monkeypatch):
+    """Inside K6's envelope the magnitude ops call K6's wrapper, outside K1's;
+    on CPU tensors both are the one plain version."""
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy(rng.randn(1, 6000).astype(np.float32))
+    calls = []
+    for name in ("framed_magnitude", "framed_magnitude_kchunk"):
+        real = getattr(fk, name)
+        monkeypatch.setattr(fk, name, lambda *a, _n=name, _f=real, **k:
+                            (calls.append(_n), _f(*a, **k))[1])
+    for f, n, route in ((8, td.KCHUNK_MIN_N, "framed_magnitude_kchunk"),
+                        (8, td.KCHUNK_MIN_N - 1, "framed_magnitude"),
+                        (129, td.KCHUNK_MIN_N, "framed_magnitude")):
+        wc = torch.from_numpy((rng.randn(f, n) * 0.05).astype(np.float32))
+        ws = torch.from_numpy((rng.randn(f, n) * 0.05).astype(np.float32))
+        del calls[:]
+        mag = td.framed_magnitude(x, wc, ws, 200, eps=1e-8)
+        power = td.framed_power(x, wc, ws, 200)
+        assert calls == [route, route]
+        assert torch.equal(mag, fk.framed_magnitude_plain(x, wc, ws, 200, eps=1e-8))
+        assert torch.equal(power, fk.framed_magnitude_plain(x, wc, ws, 200, square=True))
+
+
+@pytest.mark.parametrize("f,n,inside", [
+    (128, 4096, True), (129, 4096, False), (128, 4095, False), (1, 4096, True),
+    (84, 16384, True), (84, 4097, True), (1025, 2048, False), (1025, 16384, False),
+])
+def test_kchunk_envelope(f, n, inside):
+    assert td.KCHUNK_MIN_N == 4096 and fk.KCHUNK_MAX_F == 128
+    assert td.kchunk_envelope(f, n) is inside
+
+
+@pytest.mark.parametrize("b,t,n,splits", [
+    (32, 431, 16384, None), (1, 431, 16384, None), (2, 17, 8192, None),
+    (1, 41, 5000, None), (1, 41, 5000, 7), (1000, 431, 16384, None),
+    (1, 1, 20, None), (1, 3, 4096, 1), (2, 9, 4097, 500),
+])
+def test_kchunk_plan_covers_k_without_an_empty_split(b, t, n, splits):
+    got, kper = fk.kchunk_plan(b, t, n, splits)
+    assert got >= 1 and kper % fk.KCHUNK_BK == 0
+    assert (got - 1) * kper < n <= got * kper
+    if splits is None:
+        assert (got, kper) == fk.kchunk_plan(b, t, n)  # the shapes alone decide
+        assert got == 1 or kper >= fk.KCHUNK_MIN_SPLIT_K
+    else:
+        assert got <= splits
+    if b * -(-t // fk.KCHUNK_BT) >= fk.KCHUNK_TARGET_BLOCKS:
+        assert got == 1  # enough blocks already: one split, K1's arithmetic

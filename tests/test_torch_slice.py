@@ -42,6 +42,21 @@ def test_classifier_logits_match_jax():
     assert np.isclose(tm.loss_fn(None, x, labels).item(), jloss, rtol=1e-4, atol=1e-4)
 
 
+def test_the_cqt_slice_is_in_the_package():
+    """The modules of the CQT/VQT slice exist (so the no-JAX scan below
+    covers them) and export the classes the JAX package exports."""
+    import nnaudio_tpu.features as jfeatures
+    import nnaudio_tpu_torch.features as tfeatures
+
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for rel in ("filters/cqt.py", "core/resample.py", "features/cqt.py",
+                "features/vqt.py", "ops/framed_kernels.py"):
+        assert f"nnaudio_tpu_torch/{rel}" in scanned
+    assert (ROOT / "nnaudio_tpu_torch/csrc/framed_kchunk.cu").exists()
+    for name in ("CQT", "CQT1992", "CQT1992v2", "CQT2010", "CQT2010v2", "VQT"):
+        assert name in tfeatures.__all__ and hasattr(jfeatures, name)
+
+
 def _port_sources():
     yield from sorted((ROOT / "nnaudio_tpu_torch").rglob("*.py"))
     yield ROOT / "chip_smoke.py"
@@ -73,15 +88,19 @@ def test_entry_points_refuse_the_cpu_without_a_device_argument():
     of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is available")
-    from nnaudio_tpu_torch.features import (Griffin_Lim, InverseMelSpectrogram,
-                                            InverseMFCC, MelSpectrogram, STFT,
-                                            iSTFT)
+    from nnaudio_tpu_torch.features import (CQT, CQT1992, CQT1992v2, CQT2010,
+                                            CQT2010v2, Griffin_Lim,
+                                            InverseMelSpectrogram, InverseMFCC,
+                                            MelSpectrogram, STFT, VQT, iSTFT)
 
     for make in (lambda: STFT(verbose=False), lambda: iSTFT(verbose=False),
                  lambda: MelSpectrogram(verbose=False),
                  lambda: Griffin_Lim(n_fft=256),
                  lambda: InverseMelSpectrogram(verbose=False),
                  lambda: InverseMFCC(verbose=False),
+                 lambda: CQT1992v2(verbose=False), lambda: CQT(verbose=False),
+                 lambda: CQT1992(), lambda: CQT2010(verbose=False),
+                 lambda: CQT2010v2(verbose=False), lambda: VQT(verbose=False),
                  lambda: SpectrogramClassifier(),
                  lambda: params_from_jax({"a": np.zeros(2)}, None)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
