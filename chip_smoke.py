@@ -10,7 +10,11 @@ Phases:
     and bf16 storage, at the slice shapes, at hops 160 and 441, at bin counts
     that are no multiple of a tile, and at 64, 128 and 256 mels; the
     Griffin-Lim step (K4) also in fp32 and bf16 carries, and the pair (K5)
-    with its backward against plain autograd; the split-K magnitude (K6)
+    with its backward against plain autograd; the tensor-core kernels (K1,
+    K5) also at one bin, at fewer frames than a tile, at the pyramid's and
+    the CQT's banks, at a bank length no K chunk divides and at an odd signal
+    length, twice for bit equality, and their 3xTF32 product against an fp64
+    product beside the plain fp32 version's; the split-K magnitude (K6)
     against the plain version and against K1 at the CQT shape (84 real
     wavelets of 16384 samples, B=32 and B=1) and at odd shapes, and K3 at the
     flat CQT inverse's shape;
@@ -34,8 +38,10 @@ Phases:
         plain path on the card (Griffin-Lim at 2 iterations; at 32 by
         spectral convergence), and the STFT and the CQT against numpy on a
         small input;
- 5. CUDA-event times (median of 15 after warm-up) of each kernel, its plain
-    version and one PyTorch library call computing the same function (for
+ 5. CUDA-event times (median of 15 after warm-up, the host queued ahead of
+    the device so that a short kernel's time is the device's) of each kernel,
+    its plain version and one PyTorch library call computing the same
+    function, K1 and K5 also on one clip (for
     K4 a composite: ``torch.stft`` and the elementwise update; for K6 two
     strided ``F.conv1d`` and ``torch.hypot``), K1 at K6's shapes, and K6
     over a range of split counts; paths (e)-(i) also print one call's device
@@ -60,7 +66,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-PEAK_FP32 = 67e12    # H100 SXM fp32 outside the tensor cores, FLOP/s
+PEAK_TF32 = 495e12   # H100 SXM dense TF32, FLOP/s: the bound of fp32 storage
 PEAK_BF16 = 989e12   # H100 SXM dense bf16, FLOP/s
 HBM_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 TOL = {"highest": 1e-4, "default": 5e-2}  # tests/test_ops.py:213-216
@@ -98,8 +104,11 @@ def rel_err(got, ref) -> float:
     return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
 
 
-def cuda_ms(fn, reps=REPS, warmup=3) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` CUDA-event-timed calls."""
+def cuda_ms(fn, reps=REPS, warmup=3, queue_ahead=False) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` CUDA-event-timed calls.
+    With ``queue_ahead`` the device first spins for about a millisecond, so
+    the host has queued the whole call before the first event fires and the
+    time is the device's alone, also for a call shorter than its launch."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -107,6 +116,8 @@ def cuda_ms(fn, reps=REPS, warmup=3) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queue_ahead:
+            torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
@@ -197,6 +208,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     from nnaudio_tpu_torch import config
     from nnaudio_tpu_torch.features import (CQT1992v2, CQT2010v2, Griffin_Lim,
                                             InverseMelSpectrogram,
@@ -319,6 +331,65 @@ def main() -> int:
             if not ok:
                 fail(f"kernel disagrees with its plain version: {mode} {label}")
             del x, sre, sim, S
+    config.set_matmul_precision("highest")
+
+    # K1 and K5 (the tensor-core main loop) at shapes off its tiles, and twice:
+    # (label, B, L, N, hop, F)
+    tc_cases = [
+        ("slice (b)", 32, 220500 + 2048, 2048, 512, 1025),
+        ("T 3 (< one tile)", 2, 2048 + 2 * 512, 2048, 512, 1025),
+        ("F 1", 2, 30000, 2048, 512, 1),
+        ("F 12, N 256", 4, 20000, 256, 64, 12),
+        ("F 84, N 16384", 2, 16384 + 512 * 20, 16384, 512, 84),
+        ("F 48, N 8192, hop 128", 2, 8192 + 128 * 300, 8192, 128, 48),
+        ("N 5000, hop 100", 2, 9000, 5000, 100, 84),
+        ("odd L, hop 441", 3, 66151, 2048, 441, 300),
+        ("N 250 (rows off 16 bytes)", 2, 3001, 250, 7, 33),
+        ("hop 6 (4-byte pieces)", 2, 3002, 250, 6, 33),
+    ]
+    for mode in ("highest", "default"):
+        config.set_matmul_precision(mode)
+        for label, b, length, n, hop, f in tc_cases:
+            x, wc, ws = randn(b, length), randn(f, n) * 0.05, randn(f, n) * 0.05
+            got = {"K5": fk.framed_pair(x, wc, ws, hop),
+                   "K1": (fk.framed_magnitude(x, wc, ws, hop, eps=1e-8),),
+                   "K1 power": (fk.framed_magnitude(x, wc, ws, hop, square=True),)}
+            torch.cuda.synchronize()
+            again = {"K5": fk.framed_pair(x, wc, ws, hop),
+                     "K1": (fk.framed_magnitude(x, wc, ws, hop, eps=1e-8),),
+                     "K1 power": (fk.framed_magnitude(x, wc, ws, hop, square=True),)}
+            want = {"K5": fk.framed_pair_plain(x, wc, ws, hop),
+                    "K1": (fk.framed_magnitude_plain(x, wc, ws, hop, eps=1e-8),),
+                    "K1 power": (fk.framed_magnitude_plain(x, wc, ws, hop, square=True),)}
+            errs = {k: max(rel_err(g, w) for g, w in zip(got[k], want[k])) for k in got}
+            same = all(torch.equal(g, a) for k in got for g, a in zip(got[k], again[k]))
+            ok = same and all(e <= TOL[mode] for e in errs.values())
+            log(f"[check] {mode:8s} K1/K5 {label:26s} B={b} L={length} N={n} hop={hop} "
+                f"F={f} T={fk.num_frames(length, n, hop)}: "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" (tol {TOL[mode]:g}), second launch "
+                f"{'bit-equal' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"K1/K5 disagree with their plain versions or with "
+                     f"themselves: {mode} {label}")
+            if mode == "highest" and label == "slice (b)":
+                # what "fp32 accuracy" means for the 3xTF32 product: its error
+                # against an fp64 product, beside the plain fp32 version's
+                sub = slice(0, 4)
+                ref = torch.einsum("fn,btn->bft", wc.double(),
+                                   x[sub].double().unfold(-1, n, hop))
+                e_kernel = rel_err(got["K5"][0][sub], ref)
+                e_plain = rel_err(want["K5"][0][sub], ref)
+                e_split = rel_err(fk.framed_pair_3xtf32_plain(x[sub], wc, ws, hop)[0], ref)
+                ok64 = e_kernel <= 4 * e_plain
+                log(f"[check] highest  K5 3xTF32 against an fp64 product at (b), 4 clips: "
+                    f"kernel {e_kernel:.2e}, plain fp32 version {e_plain:.2e}, plain "
+                    f"3xTF32 version {e_split:.2e} (limit 4x the plain fp32 "
+                    f"version's) {'ok' if ok64 else 'FAIL'}")
+                if not ok64:
+                    fail("the 3xTF32 product is less accurate than 4x the fp32 product")
+                del ref
+            del x, wc, ws, got, again, want
     config.set_matmul_precision("highest")
 
     # K6 against the plain version and against K1 on the same inputs:
@@ -492,6 +563,7 @@ def main() -> int:
             drive(f"(c) MelSpectrogram {mode}", lambda: mel(xb), (batch, 128, 431))
             ms_b = cuda_ms(lambda: st(xb))
             ms_c = cuda_ms(lambda: mel(xb))
+            log_profile(f"b, {mode}", lambda: st(xb))
         results[f"b_{mode}_audio_s_per_s"] = batch * secs / (ms_b / 1e3)
         results[f"c_{mode}_audio_s_per_s"] = batch * secs / (ms_c / 1e3)
         log(f"[serve] (b) {mode}: {ms_b:.3f} ms per batch = "
@@ -686,7 +758,11 @@ def main() -> int:
     def time_set(mode):
         config.set_matmul_precision(mode)
         esz = 2 if mode == "default" else 4
-        peak = PEAK_BF16 if mode == "default" else PEAK_FP32
+        # the least time the card could take, whichever unit a kernel uses
+        peak = PEAK_BF16 if mode == "default" else PEAK_TF32
+
+        def kernel_ms(fn):
+            return cuda_ms(fn, queue_ahead=True)
         rows = {}
         with torch.no_grad():
             # K1 at (b): STFT 2048/512, B=32, T=431, F=1025
@@ -698,9 +774,9 @@ def main() -> int:
             flops = 4 * b * t * f * n
             nbytes = esz * (b * length + 2 * f * n) + 4 * b * f * t
             rows["framed_magnitude"] = dict(
-                ms=cuda_ms(lambda: fk.framed_magnitude(x, wc, ws, 512)),
-                plain_ms=cuda_ms(lambda: fk.framed_magnitude_plain(x, wc, ws, 512)),
-                library_ms=cuda_ms(lambda: stft_lib(x, 2048, 512, win).abs()),
+                ms=kernel_ms(lambda: fk.framed_magnitude(x, wc, ws, 512)),
+                plain_ms=kernel_ms(lambda: fk.framed_magnitude_plain(x, wc, ws, 512)),
+                library_ms=kernel_ms(lambda: stft_lib(x, 2048, 512, win).abs()),
                 flops=flops, bytes=nbytes,
                 shape=f"B={b} L={length} n_fft={n} hop=512 F={f} T={t}")
             # K2 at (a): classifier frontend 1024/256, B=32, T=626, F=513, M=64
@@ -712,9 +788,9 @@ def main() -> int:
             b2, length2 = x2.shape
             f2, n2, t2, m2 = 513, 1024, 626, 64
             rows["framed_filterbank"] = dict(
-                ms=cuda_ms(lambda: fk.framed_filterbank(x2, wc2, ws2, fb, 256, eps=1e-8)),
-                plain_ms=cuda_ms(lambda: fk.framed_filterbank_plain(x2, wc2, ws2, fb, 256, eps=1e-8)),
-                library_ms=cuda_ms(lambda: fb @ (stft_lib(x2, 1024, 256, win2).abs() ** 2 + 1e-8)),
+                ms=kernel_ms(lambda: fk.framed_filterbank(x2, wc2, ws2, fb, 256, eps=1e-8)),
+                plain_ms=kernel_ms(lambda: fk.framed_filterbank_plain(x2, wc2, ws2, fb, 256, eps=1e-8)),
+                library_ms=kernel_ms(lambda: fb @ (stft_lib(x2, 1024, 256, win2).abs() ** 2 + 1e-8)),
                 flops=4 * b2 * t2 * f2 * n2 + 2 * b2 * t2 * f2 * m2,
                 bytes=esz * (b2 * length2 + 2 * f2 * n2 + m2 * f2) + 4 * b2 * m2 * t2,
                 shape=f"B={b2} L={length2} n_fft={n2} hop=256 F={f2} T={t2} M={m2}")
@@ -729,20 +805,35 @@ def main() -> int:
                 return F.fold(fr, output_size=(1, out_len), kernel_size=(1, n),
                               stride=(1, 512))
             rows["synthesis_ola"] = dict(
-                ms=cuda_ms(lambda: fk.synthesis_ola(sre, sim, kc, ks, 512)),
-                plain_ms=cuda_ms(lambda: fk.synthesis_ola_plain(sre, sim, kc, ks, 512)),
-                library_ms=cuda_ms(fold_lib),
+                ms=kernel_ms(lambda: fk.synthesis_ola(sre, sim, kc, ks, 512)),
+                plain_ms=kernel_ms(lambda: fk.synthesis_ola_plain(sre, sim, kc, ks, 512)),
+                library_ms=kernel_ms(fold_lib),
                 flops=4 * batch * t * f * n,
                 bytes=esz * (2 * batch * f * t + 2 * f * n) + 4 * batch * out_len,
                 shape=f"B={batch} F={f} T={t} n_fft={n} hop=512")
             # K5 at (b)'s shape (the fp32 Griffin-Lim loop's analysis, (f))
             rows["framed_pair"] = dict(
-                ms=cuda_ms(lambda: fk.framed_pair(x, wc, ws, 512)),
-                plain_ms=cuda_ms(lambda: fk.framed_pair_plain(x, wc, ws, 512)),
-                library_ms=cuda_ms(lambda: torch.view_as_real(
+                ms=kernel_ms(lambda: fk.framed_pair(x, wc, ws, 512)),
+                plain_ms=kernel_ms(lambda: fk.framed_pair_plain(x, wc, ws, 512)),
+                library_ms=kernel_ms(lambda: torch.view_as_real(
                     stft_lib(x, 2048, 512, win))),
                 flops=flops, bytes=esz * (b * length + 2 * f * n) + 2 * 4 * b * f * t,
                 shape=f"B={b} L={length} n_fft={n} hop=512 F={f} T={t}")
+            # K1 and K5 on one 10 s clip: 4 x 9 tiles for 132 SMs
+            x1 = x[:1].contiguous()
+            for key, kernel, plain, lib, out_bytes in (
+                    ("framed_magnitude B=1", fk.framed_magnitude,
+                     fk.framed_magnitude_plain,
+                     lambda: stft_lib(x1, 2048, 512, win).abs(), 4 * f * t),
+                    ("framed_pair B=1", fk.framed_pair, fk.framed_pair_plain,
+                     lambda: torch.view_as_real(stft_lib(x1, 2048, 512, win)),
+                     2 * 4 * f * t)):
+                rows[key] = dict(
+                    ms=kernel_ms(lambda: kernel(x1, wc, ws, 512)),
+                    plain_ms=kernel_ms(lambda: plain(x1, wc, ws, 512)),
+                    library_ms=kernel_ms(lib),
+                    flops=flops // b, bytes=esz * (length + 2 * f * n) + out_bytes,
+                    shape=f"B=1 L={length} n_fft={n} hop=512 F={f} T={t}")
             # K4 at (e)'s step shape, bf16 carries: mel -> audio 1024/256,
             # B=32, T=862, F=513; S is fp32, 2 carries in and 4 out
             x4 = F.pad(randn(batch, sr_b * secs)[:, None], (512, 512), mode="reflect")[:, 0]
@@ -756,9 +847,9 @@ def main() -> int:
                 X = stft_lib(x4, n4, 256, win4)
                 return fk.gl_update(X.real, -X.imag, S4, *p4, MOM)
             rows["gl_step"] = dict(
-                ms=cuda_ms(lambda: fk.gl_step(x4, wc2, ws2, S4, *p4, 256, MOM)),
-                plain_ms=cuda_ms(lambda: fk.gl_step_plain(x4, wc2, ws2, S4, *p4, 256, MOM)),
-                library_ms=cuda_ms(gl_lib),
+                ms=kernel_ms(lambda: fk.gl_step(x4, wc2, ws2, S4, *p4, 256, MOM)),
+                plain_ms=kernel_ms(lambda: fk.gl_step_plain(x4, wc2, ws2, S4, *p4, 256, MOM)),
+                library_ms=kernel_ms(gl_lib),
                 library="composite: torch.stft + the elementwise update",
                 flops=4 * b4 * t4 * f4 * n4,
                 bytes=esz * (b4 * length4 + 2 * f4 * n4) + (4 + 6 * 2) * b4 * f4 * t4,
@@ -776,16 +867,16 @@ def main() -> int:
                     return torch.hypot(F.conv1d(xs6, wc6[:, None, :], stride=512),
                                        F.conv1d(xs6, ws6[:, None, :], stride=512))
                 rows[key] = dict(
-                    ms=cuda_ms(lambda: fk.framed_magnitude_kchunk(x6, wc6, ws6, 512)),
-                    k1_ms=cuda_ms(lambda: fk.framed_magnitude(x6, wc6, ws6, 512)),
-                    plain_ms=cuda_ms(lambda: fk.framed_magnitude_plain(x6, wc6, ws6, 512)),
-                    library_ms=cuda_ms(conv_lib),
+                    ms=kernel_ms(lambda: fk.framed_magnitude_kchunk(x6, wc6, ws6, 512)),
+                    k1_ms=kernel_ms(lambda: fk.framed_magnitude(x6, wc6, ws6, 512)),
+                    plain_ms=kernel_ms(lambda: fk.framed_magnitude_plain(x6, wc6, ws6, 512)),
+                    library_ms=kernel_ms(conv_lib),
                     library="2 x F.conv1d(stride=hop) + torch.hypot",
                     flops=4 * b6 * t6 * f6 * n_cqt,
                     bytes=esz * (b6 * len_cqt + 2 * f6 * n_cqt) + 4 * b6 * f6 * t6,
                     shape=f"B={b6} L={len_cqt} N={n_cqt} hop=512 F={f6} T={t6}")
                 planned = fk.kchunk_plan(b6, t6, n_cqt)[0]
-                sweep = {s_: cuda_ms(lambda: fk.framed_magnitude_kchunk(
+                sweep = {s_: kernel_ms(lambda: fk.framed_magnitude_kchunk(
                     x6, wc6, ws6, 512, splits=s_)) for s_ in (1, 2, 3, 4, 6, 8, 10, 16, 32)}
                 rows[key]["split_sweep_ms"] = sweep
                 log(f"[time] {mode:8s} K6 B={b6} by split count (planned {planned}): "
@@ -796,6 +887,8 @@ def main() -> int:
             r["bound_ms"] = max(t_ops, t_bytes)
             r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
             r["roofline_share"] = r["bound_ms"] / r["ms"]
+            if r["roofline_share"] > 1:
+                fail(f"{k} {mode}: {r['ms']} ms is below its bound {r['bound_ms']} ms")
             log(f"[time] {mode:8s} {k:18s} {r['shape']}: kernel {r['ms']:.3f} ms, "
                 f"plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms"
                 f"{' (' + r['library'] + ')' if 'library' in r else ''}, "
@@ -814,13 +907,14 @@ def main() -> int:
     # (source, TPU kernel replaced, precision mode of the row: the mode the
     # kernel runs in on its path; K4 runs inside the bf16 Griffin-Lim loop)
     analysis = "nnaudio_tpu_torch/csrc/framed_analysis.cu"
+    tensor_core = "nnaudio_tpu_torch/csrc/framed_tc.cu"
     meta = {
-        "framed_magnitude": (analysis, "nnaudio_tpu/ops/framed_matmul.py:273", "highest"),
+        "framed_magnitude": (tensor_core, "nnaudio_tpu/ops/framed_matmul.py:273", "highest"),
         "framed_filterbank": (analysis, "nnaudio_tpu/ops/framed_matmul.py:296", "highest"),
         "synthesis_ola": ("nnaudio_tpu_torch/csrc/synthesis_ola.cu",
                           "nnaudio_tpu/ops/framed_matmul.py:878", "highest"),
         "gl_step": (analysis, "nnaudio_tpu/ops/framed_matmul.py:239", "default"),
-        "framed_pair": (analysis, "nnaudio_tpu/ops/framed_matmul.py:205", "highest"),
+        "framed_pair": (tensor_core, "nnaudio_tpu/ops/framed_matmul.py:205", "highest"),
         "framed_magnitude_kchunk": ("nnaudio_tpu_torch/csrc/framed_kchunk.cu",
                                     "nnaudio_tpu/ops/framed_matmul.py:482", "highest"),
     }
@@ -832,6 +926,7 @@ def main() -> int:
             "launches": launches[k], "max_abs_err": max_abs[k],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

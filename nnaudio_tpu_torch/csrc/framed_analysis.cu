@@ -1,25 +1,21 @@
-// Framed analysis kernels for Hopper (sm_90a): STFT magnitude / power (K1),
-// the fused power + filterbank projection (K2), the plain re/im pair (K5)
-// and the fused Griffin-Lim analysis step (K4).
+// Framed analysis kernels for Hopper (sm_90a) on the CUDA cores: the fused
+// power + filterbank projection (K2) and the fused Griffin-Lim analysis step
+// (K4). The magnitude (K1) and the plain pair (K5), which used to share
+// `analysis_tile` with them, run on the tensor cores in framed_tc.cu.
 //
 // Replaces nnaudio_tpu/ops/framed_matmul.py:
-//   K1  _magnitude_kernel   (launched by _framed_analysis, pair=False)
 //   K2  _filterbank_kernel  (launched by _framed_filterbank)
-//   K5  _pair_kernel        (launched by _framed_analysis, pair=True)
 //   K4  _gl_step_kernel     (launched by _framed_gl_step)
 //
-// All compute, for the cos and sin bases (F, N) and a signal x (B, L),
+// Both compute, for the cos and sin bases (F, N) and a signal x (B, L),
 //   re[b,f,t] = sum_k x[b, t*hop + k] * wcos[f,k]
 //   im[b,f,t] = sum_k x[b, t*hop + k] * wsin[f,k]
 // as an implicit-im2col tiled GEMM: a frame is a strided read of the signal,
 // so any hop >= 1 works and no frame tensor ever exists in device memory.
 // They differ only in the epilogue applied to the (re, im) register tile:
-// - K1 stores sqrt(re^2 + im^2 + eps) (or the power when `square`) as (B,F,T).
 // - K2 adds eps to the power tile and projects it onto the filterbank inside
 //   the block: out[b,m,t] = sum_f fb[m,f] * (re^2 + im^2 + eps). The (B,F,T)
 //   power never reaches device memory.
-// - K5 stores re and im as two (B,F,T) fp32 arrays (the Complex / Phase
-//   STFT outputs and the fp32 Griffin-Lim loop's analysis half).
 // - K4 is one Griffin-Lim iteration's analysis half. With r = (re, -im),
 //   n = r - mom * p and c = S * n * rsqrt(|n|^2 + 1e-32), it stores the next
 //   loop carries c_re, c_im, r_re, r_im in the carry type C (fp32 or bf16),
@@ -27,24 +23,22 @@
 //   true (B,F,T) carries and masks the ragged tile edge: no padded carries,
 //   no phantom frames. It writes fresh outputs (r is not written over p).
 //
-// Bounds on the H100, all from 4*B*T*F*N flops:
-// - K1 at the headline (B=32, T=431, F=1025, N=2048): 115.8 GFLOP over
-//   (B*L + 2*F*N + B*F*T) * 4 bytes ~ 102 MB, about 1100 flop/byte.
-// - K5 at the same shape: 115.8 GFLOP over ~158 MB (two fp32 outputs).
+// Bounds on the H100, from 4*B*T*F*N flops:
+// - K2 at the classifier front end (B=32, T=626, F=513, M=64, N=1024):
+//   43.4 GFLOP over ~27 MB.
 // - K4 at the mel -> audio step (B=32, T=862, F=513, N=1024): 57.96 GFLOP
 //   over the signal, the bases, S (fp32) and 2 carries in, 4 out (~243 MB
 //   with bf16 storage and carries).
-// These kernels run FMA on the CUDA cores with fp32 accumulation, so in fp32
-// storage their ceiling is the published fp32 non-tensor peak of the H100
-// SXM at its 700 W limit, 67 TFLOP/s, and they are operation-bound (K1 and
-// K5 1.73 ms, K4 0.87 ms). Against the bf16 tensor-core peak the bf16 K4 is
-// byte-bound. Design against the operation bound: each block stages a
-// BK-deep chunk of its frame tile and both basis tiles in shared memory
-// once, and every thread then runs a 4x4 register micro-tile of both
-// accumulators, i.e. 32 FMAs per 12 shared loads. The bases are read once
-// per (frame tile, batch) block and stay in L2 across blocks (a 2048-point
-// bank is 16.8 MB in fp32). Tensor cores (wgmma / 3xTF32) are the next step
-// and are not used here.
+// These kernels run FMA on the CUDA cores with fp32 accumulation, at about a
+// third of the 67 TFLOP/s that the H100 SXM publishes for fp32 outside the
+// tensor cores; against the tensor-core peaks (495 TFLOP/s TF32, 989 bf16),
+// which are what the card could do for the same work, K2 is operation-bound
+// and the bf16 K4 byte-bound. Each block stages a BK-deep chunk of its frame
+// tile and both basis tiles in shared memory once, and every thread then
+// runs a 4x4 register micro-tile of both accumulators, i.e. 32 FMAs per 12
+// shared loads. The bases are read once per (frame tile, batch) block and
+// stay in L2 across blocks. The tensor-core main loop of framed_tc.cu is
+// the next step for both.
 //
 // Storage type S is float (highest, tensorfloat32) or bf16 (default mode);
 // every product accumulates in fp32. Launchers return cudaError_t.
@@ -129,34 +123,6 @@ __device__ __forceinline__ void analysis_tile(
   }
 }
 
-// K1: grid (ceil(T/BT), ceil(F/BF), B)
-template <typename S>
-__global__ void __launch_bounds__(NT) magnitude_kernel(
-    const S* __restrict__ x, const S* __restrict__ wcos,
-    const S* __restrict__ wsin, float* __restrict__ out, int L, int N, int hop,
-    int F, int T, float eps, int square) {
-  __shared__ FrontSmem sm;
-  const int b = blockIdx.z;
-  const int t0 = blockIdx.x * BT, f0 = blockIdx.y * BF;
-  float re[TM][TN], im[TM][TN];
-  analysis_tile<S>(x + (long long)b * L, wcos, wsin, N, hop, F, T, t0, f0, sm,
-                   re, im);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float* ob = out + (long long)b * F * T;
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int f = f0 + ty + 16 * j;
-    if (f >= F) continue;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int t = t0 + tx + 16 * i;
-      if (t >= T) continue;
-      const float p = re[i][j] * re[i][j] + im[i][j] * im[i][j] + eps;
-      ob[(long long)f * T + t] = square ? p : sqrtf(p);
-    }
-  }
-}
-
 // K2: grid (ceil(T/BT), ceil(M/(16*MJ)), B). A block owns one frame tile of
 // one batch item and 16*MJ mels; it walks every bin tile itself, so the sum
 // over F needs no atomics and is deterministic. fbT is the (F, M) transpose.
@@ -230,35 +196,6 @@ __global__ void __launch_bounds__(NT) filterbank_kernel(
   }
 }
 
-// K5: grid (ceil(T/BT), ceil(F/BF), B)
-template <typename S>
-__global__ void __launch_bounds__(NT) pair_kernel(
-    const S* __restrict__ x, const S* __restrict__ wcos,
-    const S* __restrict__ wsin, float* __restrict__ re_out,
-    float* __restrict__ im_out, int L, int N, int hop, int F, int T) {
-  __shared__ FrontSmem sm;
-  const int b = blockIdx.z;
-  const int t0 = blockIdx.x * BT, f0 = blockIdx.y * BF;
-  float re[TM][TN], im[TM][TN];
-  analysis_tile<S>(x + (long long)b * L, wcos, wsin, N, hop, F, T, t0, f0, sm,
-                   re, im);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long long base = (long long)b * F * T;
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int f = f0 + ty + 16 * j;
-    if (f >= F) continue;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int t = t0 + tx + 16 * i;
-      if (t >= T) continue;
-      const long long o = base + (long long)f * T + t;
-      re_out[o] = re[i][j];
-      im_out[o] = im[i][j];
-    }
-  }
-}
-
 // K4: grid (ceil(T/BT), ceil(F/BF), B). S is the signal/basis storage type,
 // C the carry type; mag (the target magnitudes) is fp32.
 template <typename S, typename C>
@@ -297,18 +234,6 @@ __global__ void __launch_bounds__(NT) gl_step_kernel(
   }
 }
 
-template <typename S>
-cudaError_t launch_magnitude(const void* x, const void* wcos, const void* wsin,
-                             void* out, int B, int L, int N, int hop, int F,
-                             int T, float eps, int square, cudaStream_t st) {
-  const dim3 grid((T + BT - 1) / BT, (F + BF - 1) / BF, B);
-  magnitude_kernel<S><<<grid, NT, 0, st>>>(
-      static_cast<const S*>(x), static_cast<const S*>(wcos),
-      static_cast<const S*>(wsin), static_cast<float*>(out), L, N, hop, F, T,
-      eps, square);
-  return cudaGetLastError();
-}
-
 template <typename S, int MJ>
 cudaError_t launch_filterbank_mj(const void* x, const void* wcos,
                                  const void* wsin, const void* fbT, void* out,
@@ -338,18 +263,6 @@ cudaError_t launch_filterbank(const void* x, const void* wcos, const void* wsin,
   if (M <= 128)
     return launch_filterbank_mj<S, 8>(x, wcos, wsin, fbT, out, B, L, N, hop, F, T, M, eps, st);
   return launch_filterbank_mj<S, 16>(x, wcos, wsin, fbT, out, B, L, N, hop, F, T, M, eps, st);
-}
-
-template <typename S>
-cudaError_t launch_pair(const void* x, const void* wcos, const void* wsin,
-                        void* re, void* im, int B, int L, int N, int hop,
-                        int F, int T, cudaStream_t st) {
-  const dim3 grid((T + BT - 1) / BT, (F + BF - 1) / BF, B);
-  pair_kernel<S><<<grid, NT, 0, st>>>(
-      static_cast<const S*>(x), static_cast<const S*>(wcos),
-      static_cast<const S*>(wsin), static_cast<float*>(re),
-      static_cast<float*>(im), L, N, hop, F, T);
-  return cudaGetLastError();
 }
 
 template <typename S, typename C>
@@ -386,19 +299,6 @@ cudaError_t launch_gl_step_carry(const void* x, const void* wcos,
 
 }  // namespace
 
-extern "C" int nnaudio_framed_magnitude(const void* x, const void* wcos,
-                                        const void* wsin, void* out, int B,
-                                        int L, int N, int hop, int F, int T,
-                                        float eps, int square, int bf16,
-                                        void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_magnitude<__nv_bfloat16>(x, wcos, wsin, out, B, L, N, hop, F,
-                                           T, eps, square, st);
-  return launch_magnitude<float>(x, wcos, wsin, out, B, L, N, hop, F, T, eps,
-                                 square, st);
-}
-
 extern "C" int nnaudio_framed_filterbank(const void* x, const void* wcos,
                                          const void* wsin, const void* fbT,
                                          void* out, int B, int L, int N,
@@ -410,17 +310,6 @@ extern "C" int nnaudio_framed_filterbank(const void* x, const void* wcos,
                                             hop, F, T, M, eps, st);
   return launch_filterbank<float>(x, wcos, wsin, fbT, out, B, L, N, hop, F, T,
                                   M, eps, st);
-}
-
-extern "C" int nnaudio_framed_pair(const void* x, const void* wcos,
-                                   const void* wsin, void* re, void* im, int B,
-                                   int L, int N, int hop, int F, int T,
-                                   int bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_pair<__nv_bfloat16>(x, wcos, wsin, re, im, B, L, N, hop, F,
-                                      T, st);
-  return launch_pair<float>(x, wcos, wsin, re, im, B, L, N, hop, F, T, st);
 }
 
 extern "C" int nnaudio_gl_step(const void* x, const void* wcos,

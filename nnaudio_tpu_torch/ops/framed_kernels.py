@@ -3,16 +3,22 @@
 ===========================  ==============================  =====================
 wrapper                      CUDA kernel (``csrc/``)         TPU kernel replaced
 ===========================  ==============================  =====================
-``framed_magnitude``         ``framed_analysis.cu`` K1       ``_magnitude_kernel``
+``framed_magnitude``         ``framed_tc.cu`` K1             ``_magnitude_kernel``
 ``framed_filterbank``        ``framed_analysis.cu`` K2       ``_filterbank_kernel``
 ``synthesis_ola``            ``synthesis_ola.cu`` K3         ``_synthesis_ola_kernel``
 ``gl_step``                  ``framed_analysis.cu`` K4       ``_gl_step_kernel``
-``framed_pair``              ``framed_analysis.cu`` K5       ``_pair_kernel``
+``framed_pair``              ``framed_tc.cu`` K5             ``_pair_kernel``
 ``framed_magnitude_kchunk``  ``framed_kchunk.cu`` K6         ``_magnitude_kchunk_kernel``
 ===========================  ==============================  =====================
 
 K1 and K6 compute one function, ``framed_magnitude_plain``: K6 is its
 split-K form for a bank of at most 128 bins and a long contraction.
+
+K1 and K5 run on the tensor cores (``wgmma``). In fp32 storage they take
+three TF32 products of operands split as ``a = hi + lo`` and accumulate in
+fp32; :func:`tf32_split` and :func:`framed_pair_3xtf32_plain` repeat that
+arithmetic in plain PyTorch. In bf16 storage they take one bf16 product.
+K2-K4 and K6 run fp32 FMA on the CUDA cores in both storage types.
 
 A wrapper given a CPU tensor computes its plain version; given a CUDA tensor
 it launches its kernel or raises. It checks device, dtype and shape, makes
@@ -55,6 +61,37 @@ def framed_pair_plain(x, wcos, wsin, hop):
     """(B, L) x (F, N) bases -> (re, im_raw), each (B, F, T): unfold + matmul."""
     frames = frame_signal(x, wcos.shape[-1], hop)  # (B, T, N) view
     return apply_basis(frames, wcos), apply_basis(frames, wsin)
+
+
+def tf32_split(t):
+    """``(hi, lo)`` with ``hi = tf32(t)`` and ``lo = tf32(t - hi)``, both
+    float32 holding TF32 values (10 mantissa bits). The rounding is to
+    nearest with ties away from zero, as ``cvt.rna.tf32.f32`` rounds, done
+    on the bit patterns with integer arithmetic: add half a TF32 unit to the
+    magnitude and clear the 13 low bits."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    t = t.float()
+    hi = rna(t)
+    return hi, rna(t - hi)
+
+
+def framed_pair_3xtf32_plain(x, wcos, wsin, hop):
+    """The pair as the tensor-core kernel computes it in fp32 storage: each
+    operand split by :func:`tf32_split`, then ``lo*hi + hi*lo`` and last
+    ``hi*hi`` in fp32 (``lo*lo`` is dropped)."""
+    n = wcos.shape[-1]
+    x_hi, x_lo = (frame_signal(p, n, hop) for p in tf32_split(x))
+
+    def product(w):
+        w_hi, w_lo = tf32_split(w)
+        small = (torch.einsum("fn,btn->bft", w_lo, x_hi)
+                 + torch.einsum("fn,btn->bft", w_hi, x_lo))
+        return small + torch.einsum("fn,btn->bft", w_hi, x_hi)
+
+    return product(wcos), product(wsin)
 
 
 def framed_magnitude_plain(x, wcos, wsin, hop, eps=0.0, square=False):
@@ -142,7 +179,7 @@ _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGNATURES = {
     "nnaudio_framed_magnitude": (
-        "framed_analysis",
+        "framed_tc",
         [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
          ctypes.c_float, _INT, _INT, _VOID]),
     "nnaudio_framed_filterbank": (
@@ -154,7 +191,7 @@ _SIGNATURES = {
         [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
          _VOID]),
     "nnaudio_framed_pair": (
-        "framed_analysis",
+        "framed_tc",
         [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
          _INT, _VOID]),
     "nnaudio_gl_step": (

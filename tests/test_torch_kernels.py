@@ -119,13 +119,57 @@ def test_kchunk_matches_plain_version_and_k1(cuda, mode, length, n, hop, f, spli
         k1 = fk.framed_magnitude(x, wc, ws, hop, **kw)
         torch.cuda.synchronize()
         assert rel_err(k6, fk.framed_magnitude_plain(x, wc, ws, hop, **kw)) <= TOL[mode]
+        # K1 sums on the tensor cores, K6 with fp32 FMA, also with one split
         assert rel_err(k6, k1) <= TOL[mode]
-        if splits == 1:
-            assert torch.equal(k6, k1)
         # no atomics: a second launch gives the same bits
         assert torch.equal(k6, fk.framed_magnitude_kchunk(x, wc, ws, hop, splits=splits, **kw))
     assert fk.LAUNCHES["framed_magnitude_kchunk"] == before["framed_magnitude_kchunk"] + 4
     assert fk.LAUNCHES["framed_magnitude"] == before["framed_magnitude"] + 2
+
+
+@pytest.mark.parametrize("length,n,hop,f", [
+    (2048 + 2 * 512, 2048, 512, 1025),   # T = 3, below one frame tile
+    (30000, 2048, 512, 1),               # one bin
+    (20000, 256, 64, 12),                # an octave of the pyramid
+    (16384 + 512 * 20, 16384, 512, 84),  # the default CQT bank
+    (8192 + 128 * 300, 8192, 128, 48),   # the CQT round trip's bank
+    (9000, 5000, 100, 84),               # an N no K chunk divides
+    (66151, 2048, 441, 300),             # odd length, odd hop
+    (3001, 250, 7, 33),                  # basis rows off 16 bytes
+    (3002, 250, 6, 33),                  # frame rows aligned to 4 bytes only (bf16)
+    (222548, 2048, 512, 1025),           # the STFT 2048/512 of a 10 s clip
+])
+def test_tensor_core_kernels_match_plain_versions_twice(cuda, mode, length, n, hop, f):
+    """K1 and K5 at shapes off their tiles, and a second launch bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2, length, generator=g, device=cuda)
+    wc = torch.randn(f, n, generator=g, device=cuda) * 0.05
+    ws = torch.randn(f, n, generator=g, device=cuda) * 0.05
+    pair = fk.framed_pair(x, wc, ws, hop)
+    torch.cuda.synchronize()
+    for got, want in zip(pair, fk.framed_pair_plain(x, wc, ws, hop)):
+        assert rel_err(got, want) <= TOL[mode]
+    for got, again in zip(pair, fk.framed_pair(x, wc, ws, hop)):
+        assert torch.equal(got, again)
+    for kw in (dict(eps=1e-8), dict(square=True)):
+        k1 = fk.framed_magnitude(x, wc, ws, hop, **kw)
+        torch.cuda.synchronize()
+        assert rel_err(k1, fk.framed_magnitude_plain(x, wc, ws, hop, **kw)) <= TOL[mode]
+        assert torch.equal(k1, fk.framed_magnitude(x, wc, ws, hop, **kw))
+
+
+def test_3xtf32_pair_is_as_accurate_as_the_fp32_product(cuda):
+    """Against an fp64 product the kernel's fp32-storage result errs at most
+    4x as much as the plain fp32 version."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n, hop, f = 2048, 512, 1025
+    x = torch.randn(2, n + 100 * hop, generator=g, device=cuda)
+    wc = torch.randn(f, n, generator=g, device=cuda) * 0.05
+    ref = torch.einsum("fn,btn->bft", wc.double(), x.double().unfold(-1, n, hop))
+    config.set_matmul_precision("highest")
+    got = fk.framed_pair(x, wc, wc, hop)[0]
+    plain = fk.framed_pair_plain(x, wc, wc, hop)[0]
+    assert rel_err(got, ref) <= 4 * rel_err(plain, ref)
 
 
 def test_kchunk_rejects_wide_banks(cuda):

@@ -315,3 +315,77 @@ def test_kchunk_plan_covers_k_without_an_empty_split(b, t, n, splits):
         assert got <= splits
     if b * -(-t // fk.KCHUNK_BT) >= fk.KCHUNK_TARGET_BLOCKS:
         assert got == 1  # enough blocks already: one split, K1's arithmetic
+
+
+def _tf32_cases():
+    rng = np.random.RandomState(20)
+    half = np.float32(2.0 ** -11)  # half a TF32 unit at 1.0
+    return {
+        "random": rng.randn(4096).astype(np.float32),
+        "wide exponents": (rng.randn(4096) * 10.0 ** rng.uniform(-20, 20, 4096)).astype(np.float32),
+        "ties": np.array([1 + half, 1 + 3 * half, 2 + 2 * half, 1 + half / 2], np.float32),
+        "negative": -np.abs(rng.randn(4096)).astype(np.float32),
+        "zeros": np.array([0.0, -0.0], np.float32),
+    }
+
+
+@pytest.mark.parametrize("case", list(_tf32_cases()))
+def test_tf32_split(case):
+    """hi holds 10 mantissa bits, hi + lo reproduces the input to 2^-21, the
+    rounding is to nearest with ties away from zero, and odd in its input."""
+    v = _tf32_cases()[case]
+    hi, lo = fk.tf32_split(torch.from_numpy(v))
+    assert hi.dtype == lo.dtype == torch.float32
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    v64 = v.astype(np.float64)
+    err = np.abs(hi.double().numpy() + lo.double().numpy() - v64)
+    assert (err <= 2.0 ** -21 * np.abs(v64)).all()
+    # |v - hi| is at most half a TF32 unit of v
+    assert (np.abs(v64 - hi.double().numpy()) <= 2.0 ** -11 * np.abs(v64)).all()
+    neg_hi, neg_lo = fk.tf32_split(torch.from_numpy(-v))
+    assert torch.equal(neg_hi, -hi) and torch.equal(neg_lo, -lo)
+    if case == "ties":
+        unit = 2.0 ** -10
+        assert hi.tolist() == [1 + unit, 1 + 2 * unit, 2 + 2 * unit, 1.0]
+    if case == "zeros":
+        assert hi.tolist() == [0.0, 0.0] and lo.tolist() == [0.0, 0.0]
+        assert bool(torch.signbit(hi)[1]) and not bool(torch.signbit(hi)[0])
+
+
+@pytest.mark.parametrize("f,n,hop", [(65, 2048, 512), (84, 16384, 512), (201, 400, 3)])
+def test_3xtf32_plain_pair_is_as_accurate_as_fp32(f, n, hop):
+    """Three TF32 products of the split operands against an fp64 product:
+    within 4x of the plain fp32 version's error and 1e-5 of max |ref|."""
+    rng = np.random.RandomState(21)
+    frames = 6
+    x = rng.randn(2, n + hop * (frames - 1)).astype(np.float32)
+    wcos = rng.randn(f, n).astype(np.float32)
+    wsin = rng.randn(f, n).astype(np.float32)
+    fr = np.stack([x[:, i * hop:i * hop + n] for i in range(frames)], 1).astype(np.float64)
+    tx, tc, ts = map(torch.from_numpy, (x, wcos, wsin))
+    got = fk.framed_pair_3xtf32_plain(tx, tc, ts, hop)
+    plain = fk.framed_pair_plain(tx, tc, ts, hop)
+    for w, g, p in zip((wcos, wsin), got, plain):
+        ref = np.einsum("fn,btn->bft", w.astype(np.float64), fr)
+        scale = np.abs(ref).max()
+        e_split = np.abs(g.numpy() - ref).max() / scale
+        e_plain = np.abs(p.numpy() - ref).max() / scale
+        assert g.shape == p.shape == ref.shape
+        assert e_split <= 4 * e_plain and e_split <= 1e-5, (e_split, e_plain)
+
+
+@pytest.mark.parametrize("length,f,n,hop", [(4096, 129, 1024, 256), (2048, 65, 512, 128)])
+def test_3xtf32_plain_pair_matches_interpreted_pallas(length, f, n, hop):
+    """K5's tensor-core arithmetic, repeated in plain PyTorch, against the
+    Pallas pair kernel itself (interpreted), as tests/test_ops.py drives it."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, length).astype(np.float32)
+    wcos = rng.randn(f, n).astype(np.float32)
+    wsin = rng.randn(f, n).astype(np.float32)
+    jx, jc, js = map(jnp.asarray, (x, wcos, wsin))
+    assert framed_matmul.framed_matmul_pair_supported(jx, jc, hop)
+    want = _interpreted(framed_matmul.framed_matmul_pair_pallas, jx, jc, js, hop)
+    got = fk.framed_pair_3xtf32_plain(*map(torch.from_numpy, (x, wcos, wsin)), hop)
+    for g, w in zip(got, want):
+        _close(g, w)
