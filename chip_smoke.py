@@ -11,10 +11,12 @@ Phases:
     that are no multiple of a tile, and at 64, 128 and 256 mels; the
     Griffin-Lim step (K4) also in fp32 and bf16 carries, and the pair (K5)
     with its backward against plain autograd; the tensor-core kernels (K1,
-    K5) also at one bin, at fewer frames than a tile, at the pyramid's and
-    the CQT's banks, at a bank length no K chunk divides and at an odd signal
-    length, twice for bit equality, and their 3xTF32 product against an fp64
-    product beside the plain fp32 version's; the split-K magnitude (K6)
+    K2, K4, K5) also at one bin and one mel, at 300 mels, at fewer frames
+    than a tile, at the pyramid's and the CQT's banks, at a bank length no K
+    chunk divides and at an odd signal length, twice for bit equality, and
+    their 3xTF32 arithmetic against fp64 beside the plain fp32 version's (K5
+    the product, K2 the filterbank of the power, K4 its four carries); the
+    split-K magnitude (K6)
     against the plain version and against K1 at the CQT shape (84 real
     wavelets of 16384 samples, B=32 and B=1) and at odd shapes, and K3 at the
     flat CQT inverse's shape;
@@ -44,8 +46,9 @@ Phases:
     function, K1 and K5 also on one clip (for
     K4 a composite: ``torch.stft`` and the elementwise update; for K6 two
     strided ``F.conv1d`` and ``torch.hypot``), K1 at K6's shapes, and K6
-    over a range of split counts; paths (e)-(i) also print one call's device
-    time by kernel under ``torch.profiler``;
+    over a range of split counts, K2 also at (c)'s shape; paths (a)-(c)
+    and (e)-(i) also print one call's device time by kernel under
+    ``torch.profiler``;
  6. a ``kernels`` JSON line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
@@ -55,6 +58,7 @@ no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -100,6 +104,42 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def spill_report(lib_path, nvcc) -> dict | None:
+    """Local-memory instructions (LDL, STL: spills) of each kernel of a built
+    library, by the warpgroup role that runs them, read from its SASS:
+    {kernel: {role: count}}. The role is set by the last `setmaxnreg` before
+    the instruction: the increase starts the multiplying warpgroups' code,
+    the decrease the loading ones'. None where the toolkit has no
+    cuobjdump."""
+    tool = Path(nvcc).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, func, role = {}, None, "entry"
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            func, role = found.group(1), "entry"
+            counts[func] = {"entry": 0, "multiplying": 0, "loading": 0}
+        elif "USETMAXREG" in line:
+            role = "multiplying" if "TRY_ALLOC" in line else "loading"
+        elif func and re.search(r"\b(LDL|STL)\b", line):
+            counts[func][role] += 1
+    return counts
+
+
+def kernel_label(mangled: str) -> str:
+    """framed_tc_kernel<float, 112> from its mangled name."""
+    found = re.search(r"([a-z_]+_kernel)I(.*?)EEv", mangled)
+    if not found:
+        plain = re.search(r"([a-z_]+_kernel)E", mangled)
+        return plain.group(1) if plain else mangled[:60]
+    args = [{"13__nv_bfloat16": "bf16", "f": "float"}.get(t, n or ("true" if b == "1" else "false"))
+            for t, n, b in re.findall(r"(13__nv_bfloat16|f|Li(\d+)E|Lb([01])E)", found.group(2))]
+    return f"{found.group(1)}<{', '.join(args)}>"
+
+
 def rel_err(got, ref) -> float:
     return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
 
@@ -128,22 +168,59 @@ def cuda_ms(fn, reps=REPS, warmup=3, queue_ahead=False) -> float:
 
 def gl_step_errors(fk, got, x, wc, ws, S, p_re, p_im, hop, mom):
     """K4's outputs against its plain version: (r error, c error on the
-    elements where the plain |n| >= 1e-2 rms|n|, max ||c| - S| / max S,
-    elements excluded). Where |n| -> 0 the direction of c = S n/|n| turns
-    with the last bits of the sum, so those elements are held only by |c|."""
-    want = fk.gl_step_plain(x, wc, ws, S, p_re, p_im, hop, mom)
-    re, im = fk.framed_pair_plain(x, wc, ws, hop)
-    n_abs = torch.hypot(re - mom * p_re.float(), -im - mom * p_im.float())
+    elements where |n| >= 1e-2 rms|n|, max ||c| - S| / max S, elements
+    excluded, max abs error). r and |c| are held against the plain version
+    as it runs (fp32 products); c against the plain version evaluated in fp64
+    on the same storage-rounded operands and rounded to the carry type:
+    c = S n/|n| magnifies the pair's rounding where |n| is small, and the
+    fp32 plain version's own c is ~1e-4 of max |c| off the fp64 one (at (b)),
+    as far as the kernel's tolerance. Where |n| -> 0 the direction of c
+    turns with the last bits of the sum, so those elements are held only by
+    |c|."""
+    from nnaudio_tpu_torch.config import round_to_storage
+
+    plain = [o.float() for o in fk.gl_step_plain(x, wc, ws, S, p_re, p_im, hop, mom)]
+    frames = round_to_storage(x).double().unfold(-1, wc.shape[-1], hop)
+    re = torch.einsum("fn,btn->bft", round_to_storage(wc).double(), frames)
+    im = torch.einsum("fn,btn->bft", round_to_storage(ws).double(), frames)
+    exact = [o.float() for o in fk.gl_update(re, im, S, p_re, p_im, mom)]
+    n_abs = torch.hypot(re - mom * p_re.double(), -im - mom * p_im.double())
     keep = n_abs >= 1e-2 * n_abs.square().mean().sqrt()
+    del frames, re, im, n_abs
     got = [o.float() for o in got]
-    want = [o.float() for o in want]
-    r_err = max(rel_err(got[k], want[k]) for k in (2, 3))
-    c_err = max(float(((got[k] - want[k]).abs() * keep).max() / want[k].abs().max())
+    r_err = max(rel_err(got[k], plain[k]) for k in (2, 3))
+    c_err = max(float(((got[k] - exact[k]).abs() * keep).max() / exact[k].abs().max())
                 for k in (0, 1))
     mag_err = float((torch.hypot(got[0], got[1]) - S).abs().max() / S.max())
-    abs_err = max(float(((got[k] - want[k]).abs() * (keep if k < 2 else 1)).max())
+    abs_err = max(float(((got[k] - plain[k]).abs() * (keep if k < 2 else 1)).max())
                   for k in range(4))
     return r_err, c_err, mag_err, int((~keep).sum()), abs_err
+
+
+def fp64_errors(fk, x, wc, ws, fb, S, p_re, p_im, hop, mom):
+    """K2 and K4 in fp32 storage (K4 with fp32 carries p_re, p_im) and their
+    plain fp32 versions against the same functions in fp64: {"K2": (kernel,
+    plain), "K4": (kernel, plain)}, each the max error over max |ref|, K4's
+    the largest of its four outputs, c where the fp64 |n| >= 1e-2 rms|n|."""
+    frames = x.double().unfold(-1, wc.shape[-1], hop)
+    re = torch.einsum("fn,btn->bft", wc.double(), frames)
+    im = torch.einsum("fn,btn->bft", ws.double(), frames)
+    ref2 = torch.einsum("mf,bft->bmt", fb.double(), re * re + im * im + 1e-8)
+    ref4 = fk.gl_update(re, im, S.double(), p_re.double(), p_im.double(), mom)
+    n_abs = torch.hypot(re - mom * p_re.double(), -im - mom * p_im.double())
+    keep = n_abs >= 1e-2 * n_abs.square().mean().sqrt()
+
+    def err(got, ref, mask=None):
+        d = (got.double() - ref).abs()
+        return float((d if mask is None else d * mask).max() / ref.abs().max())
+
+    def err4(got):
+        return max(err(g, r, keep if k < 2 else None)
+                   for k, (g, r) in enumerate(zip(got, ref4)))
+    return {"K2": (err(fk.framed_filterbank(x, wc, ws, fb, hop, eps=1e-8), ref2),
+                   err(fk.framed_filterbank_plain(x, wc, ws, fb, hop, eps=1e-8), ref2)),
+            "K4": (err4(fk.gl_step(x, wc, ws, S, p_re, p_im, hop, mom)),
+                   err4(fk.gl_step_plain(x, wc, ws, S, p_re, p_im, hop, mom)))}
 
 
 def pair_grads(fn, x, wc, ws, hop, g_re, g_im):
@@ -231,10 +308,23 @@ def main() -> int:
     build.build_all()
     log(f"[build] {len(build.build_info['compiled'])} sources compiled in "
         f"{build.build_info['seconds']:.1f} s (load {time.perf_counter() - t0:.1f} s)")
+    # ptxas -v per kernel: registers, and the spill of its stack frame
     for src, report in build.build_info["ptxas"].items():
         for line in report.splitlines():
-            if "registers" in line:
-                log(f"[build] {src}: {line.strip()}")
+            if "Compiling entry function" in line:
+                log(f"[build] {src}: {kernel_label(line.split(chr(39))[1])}")
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {src}:   {line.strip()}")
+    # where the tensor-core kernel's spills run: the multiplying warpgroups
+    # hold the accumulators, the loading ones only addresses
+    spills = spill_report(build.library("framed_tc")._name, build._nvcc())
+    for func, by_role in (spills or {}).items():
+        if "framed_tc_kernel" in func:
+            log(f"[build] framed_tc.cu {kernel_label(func)}: spill instructions (LDL/STL) "
+                f"in the multiplying warpgroups {by_role['multiplying']}, in the "
+                f"loading ones {by_role['loading']}, before either {by_role['entry']}")
+    if spills is None:
+        log("[build] no cuobjdump beside nvcc: spill sites not read")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -247,7 +337,8 @@ def main() -> int:
 
     # ---------------------------------------- 3. kernels vs plain versions --
     # (B, L, n_fft, hop, F, M): the slice shapes first, then odd hops, bin
-    # counts that are no multiple of a tile, and 64 / 128 / 256 mels
+    # counts that are no multiple of a tile, 64 / 128 / 256 mels, and for K2
+    # and K4 one bin and one mel, fewer frames than a tile, and 300 mels
     cases = [
         ("slice (b)", 32, 220500 + 2048, 2048, 512, None, 128),
         ("slice (a)", 32, 160000 + 1024, 1024, 256, None, 64),
@@ -255,6 +346,9 @@ def main() -> int:
         ("hop 441", 4, 66150, 2048, 441, None, 256),
         ("F 1000, hop 100", 2, 30000, 2048, 100, 1000, 64),
         ("F 201, hop 3", 2, 4000, 400, 3, 201, 256),
+        ("F 1, M 1", 2, 30000, 2048, 512, 1, 1),
+        ("T 3, M 40", 2, 2048 + 2 * 512, 2048, 512, None, 40),
+        ("M 300, hop 3", 2, 4000, 400, 3, 201, 300),
     ]
     # fp32 storage (and carries), at the slice shapes
     max_abs = {k: 0.0 for k in fk.LAUNCHES}
@@ -333,63 +427,87 @@ def main() -> int:
             del x, sre, sim, S
     config.set_matmul_precision("highest")
 
-    # K1 and K5 (the tensor-core main loop) at shapes off its tiles, and twice:
-    # (label, B, L, N, hop, F)
+    # K1, K2, K4 and K5 (the tensor-core main loop) at shapes off its tiles,
+    # and twice: (label, B, L, N, hop, F, M)
     tc_cases = [
-        ("slice (b)", 32, 220500 + 2048, 2048, 512, 1025),
-        ("T 3 (< one tile)", 2, 2048 + 2 * 512, 2048, 512, 1025),
-        ("F 1", 2, 30000, 2048, 512, 1),
-        ("F 12, N 256", 4, 20000, 256, 64, 12),
-        ("F 84, N 16384", 2, 16384 + 512 * 20, 16384, 512, 84),
-        ("F 48, N 8192, hop 128", 2, 8192 + 128 * 300, 8192, 128, 48),
-        ("N 5000, hop 100", 2, 9000, 5000, 100, 84),
-        ("odd L, hop 441", 3, 66151, 2048, 441, 300),
-        ("N 250 (rows off 16 bytes)", 2, 3001, 250, 7, 33),
-        ("hop 6 (4-byte pieces)", 2, 3002, 250, 6, 33),
+        ("slice (b)", 32, 220500 + 2048, 2048, 512, 1025, 128),
+        ("T 3 (< one tile)", 2, 2048 + 2 * 512, 2048, 512, 1025, 64),
+        ("F 1", 2, 30000, 2048, 512, 1, 1),
+        ("F 12, N 256", 4, 20000, 256, 64, 12, 40),
+        ("F 84, N 16384", 2, 16384 + 512 * 20, 16384, 512, 84, 300),
+        ("F 48, N 8192, hop 128", 2, 8192 + 128 * 300, 8192, 128, 48, 1),
+        ("N 5000, hop 100", 2, 9000, 5000, 100, 84, 64),
+        ("odd L, hop 441", 3, 66151, 2048, 441, 300, 256),
+        ("N 250 (rows off 16 bytes)", 2, 3001, 250, 7, 33, 40),
+        ("hop 6 (4-byte pieces)", 2, 3002, 250, 6, 33, 64),
     ]
+    carries = {"fp32": torch.float32, "bf16": torch.bfloat16}
     for mode in ("highest", "default"):
         config.set_matmul_precision(mode)
-        for label, b, length, n, hop, f in tc_cases:
+        for label, b, length, n, hop, f, m in tc_cases:
             x, wc, ws = randn(b, length), randn(f, n) * 0.05, randn(f, n) * 0.05
-            got = {"K5": fk.framed_pair(x, wc, ws, hop),
-                   "K1": (fk.framed_magnitude(x, wc, ws, hop, eps=1e-8),),
-                   "K1 power": (fk.framed_magnitude(x, wc, ws, hop, square=True),)}
+            fb = torch.rand(m, f, generator=gen, device=dev)
+            t = fk.num_frames(length, n, hop)
+            S = torch.rand(b, f, t, generator=gen, device=dev)
+            prev = {c: (randn(b, f, t).to(dt), randn(b, f, t).to(dt))
+                    for c, dt in carries.items()}
+
+            def launch_all():
+                out = {"K5": fk.framed_pair(x, wc, ws, hop),
+                       "K1": (fk.framed_magnitude(x, wc, ws, hop, eps=1e-8),),
+                       "K1 power": (fk.framed_magnitude(x, wc, ws, hop, square=True),),
+                       "K2": (fk.framed_filterbank(x, wc, ws, fb, hop, eps=1e-8),)}
+                for c, (p_re, p_im) in prev.items():
+                    out[f"K4 {c}"] = fk.gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)
+                return out
+            got = launch_all()
             torch.cuda.synchronize()
-            again = {"K5": fk.framed_pair(x, wc, ws, hop),
-                     "K1": (fk.framed_magnitude(x, wc, ws, hop, eps=1e-8),),
-                     "K1 power": (fk.framed_magnitude(x, wc, ws, hop, square=True),)}
+            again = launch_all()
             want = {"K5": fk.framed_pair_plain(x, wc, ws, hop),
                     "K1": (fk.framed_magnitude_plain(x, wc, ws, hop, eps=1e-8),),
-                    "K1 power": (fk.framed_magnitude_plain(x, wc, ws, hop, square=True),)}
-            errs = {k: max(rel_err(g, w) for g, w in zip(got[k], want[k])) for k in got}
+                    "K1 power": (fk.framed_magnitude_plain(x, wc, ws, hop, square=True),),
+                    "K2": (fk.framed_filterbank_plain(x, wc, ws, fb, hop, eps=1e-8),)}
+            errs = {k: max(rel_err(g, w) for g, w in zip(got[k], want[k])) for k in want}
+            ok = all(e <= TOL[mode] for e in errs.values())
+            for c, dt in carries.items():
+                r_err, c_err, mag_err, _, _ = gl_step_errors(
+                    fk, got[f"K4 {c}"], x, wc, ws, S, *prev[c], hop, MOM)
+                tol4 = max(TOL[mode], CARRY_TOL[dt])
+                ok = ok and r_err <= tol4 and c_err <= tol4 and mag_err <= MAG_TOL[dt]
+                errs[f"K4 {c} r"], errs[f"K4 {c} c"] = r_err, c_err
+                errs[f"K4 {c} |c|-S"] = mag_err
             same = all(torch.equal(g, a) for k in got for g, a in zip(got[k], again[k]))
-            ok = same and all(e <= TOL[mode] for e in errs.values())
-            log(f"[check] {mode:8s} K1/K5 {label:26s} B={b} L={length} N={n} hop={hop} "
-                f"F={f} T={fk.num_frames(length, n, hop)}: "
+            ok = ok and same
+            log(f"[check] {mode:8s} K1/K2/K4/K5 {label:26s} B={b} L={length} N={n} "
+                f"hop={hop} F={f} M={m} T={t}: "
                 + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-                + f" (tol {TOL[mode]:g}), second launch "
+                + f" (tol {TOL[mode]:g}; K4 carries as above), second launch "
                 f"{'bit-equal' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
             if not ok:
-                fail(f"K1/K5 disagree with their plain versions or with "
+                fail(f"K1/K2/K4/K5 disagree with their plain versions or with "
                      f"themselves: {mode} {label}")
             if mode == "highest" and label == "slice (b)":
-                # what "fp32 accuracy" means for the 3xTF32 product: its error
-                # against an fp64 product, beside the plain fp32 version's
+                # what "fp32 accuracy" means for the 3xTF32 products: their
+                # error against fp64, beside the plain fp32 version's
                 sub = slice(0, 4)
                 ref = torch.einsum("fn,btn->bft", wc.double(),
                                    x[sub].double().unfold(-1, n, hop))
                 e_kernel = rel_err(got["K5"][0][sub], ref)
                 e_plain = rel_err(want["K5"][0][sub], ref)
                 e_split = rel_err(fk.framed_pair_3xtf32_plain(x[sub], wc, ws, hop)[0], ref)
-                ok64 = e_kernel <= 4 * e_plain
+                e64 = fp64_errors(fk, x[sub], wc, ws, fb, S[sub], *(p[sub] for p in prev["fp32"]),
+                                  hop, MOM)
+                ok64 = e_kernel <= 4 * e_plain and all(k <= 4 * p for k, p in e64.values())
                 log(f"[check] highest  K5 3xTF32 against an fp64 product at (b), 4 clips: "
                     f"kernel {e_kernel:.2e}, plain fp32 version {e_plain:.2e}, plain "
-                    f"3xTF32 version {e_split:.2e} (limit 4x the plain fp32 "
-                    f"version's) {'ok' if ok64 else 'FAIL'}")
+                    f"3xTF32 version {e_split:.2e}; against fp64 functions, K2 (M={m}) "
+                    f"kernel {e64['K2'][0]:.2e}, plain {e64['K2'][1]:.2e}; K4 (fp32 "
+                    f"carries) kernel {e64['K4'][0]:.2e}, plain {e64['K4'][1]:.2e} "
+                    f"(limit 4x the plain fp32 version's) {'ok' if ok64 else 'FAIL'}")
                 if not ok64:
-                    fail("the 3xTF32 product is less accurate than 4x the fp32 product")
+                    fail("a 3xTF32 kernel is less accurate than 4x its plain fp32 version")
                 del ref
-            del x, wc, ws, got, again, want
+            del x, wc, ws, fb, S, prev, got, again, want
     config.set_matmul_precision("highest")
 
     # K6 against the plain version and against K1 on the same inputs:
@@ -548,6 +666,7 @@ def main() -> int:
             outs, dt = drive(f"(a) classifier {mode} x4 requests",
                              lambda: [model(None, r) for r in requests],
                              (batch, 10))
+            log_profile(f"a, {mode}, one request", lambda: model(None, requests[0]))
         results[f"a_{mode}_audio_s_per_s"] = 4 * batch * secs / dt
         log(f"[serve] (a) {mode}: 4 requests of {batch} x {secs} s in "
             f"{dt * 1e3:.1f} ms = {4 * batch * secs / dt:.1f} audio-s/s")
@@ -564,6 +683,7 @@ def main() -> int:
             ms_b = cuda_ms(lambda: st(xb))
             ms_c = cuda_ms(lambda: mel(xb))
             log_profile(f"b, {mode}", lambda: st(xb))
+            log_profile(f"c, {mode}", lambda: mel(xb))
         results[f"b_{mode}_audio_s_per_s"] = batch * secs / (ms_b / 1e3)
         results[f"c_{mode}_audio_s_per_s"] = batch * secs / (ms_c / 1e3)
         log(f"[serve] (b) {mode}: {ms_b:.3f} ms per batch = "
@@ -794,6 +914,16 @@ def main() -> int:
                 flops=4 * b2 * t2 * f2 * n2 + 2 * b2 * t2 * f2 * m2,
                 bytes=esz * (b2 * length2 + 2 * f2 * n2 + m2 * f2) + 4 * b2 * m2 * t2,
                 shape=f"B={b2} L={length2} n_fft={n2} hop=256 F={f2} T={t2} M={m2}")
+            # K2 at (c): Mel-128 2048/512, B=32, T=431, F=1025
+            fb_c = MelSpectrogram(sr=sr_b, n_fft=2048, hop_length=512, n_mels=128,
+                                  verbose=False, device=dev).mel_basis
+            rows["framed_filterbank (c)"] = dict(
+                ms=kernel_ms(lambda: fk.framed_filterbank(x, wc, ws, fb_c, 512, eps=1e-8)),
+                plain_ms=kernel_ms(lambda: fk.framed_filterbank_plain(x, wc, ws, fb_c, 512, eps=1e-8)),
+                library_ms=kernel_ms(lambda: fb_c @ (stft_lib(x, 2048, 512, win).abs() ** 2 + 1e-8)),
+                flops=flops + 2 * b * t * f * 128,
+                bytes=esz * (b * length + 2 * f * n + 128 * f) + 4 * b * 128 * t,
+                shape=f"B={b} L={length} n_fft={n} hop=512 F={f} T={t} M=128")
             # K3 at (d): synthesis 2048/512, B=32, T=431, F=1025
             sre, sim = randn(batch, f, t), randn(batch, f, t)
             kc, ks = wc / n, ws / n
@@ -906,14 +1036,13 @@ def main() -> int:
     # -------------------------------------------------------- 6. summary --
     # (source, TPU kernel replaced, precision mode of the row: the mode the
     # kernel runs in on its path; K4 runs inside the bf16 Griffin-Lim loop)
-    analysis = "nnaudio_tpu_torch/csrc/framed_analysis.cu"
     tensor_core = "nnaudio_tpu_torch/csrc/framed_tc.cu"
     meta = {
         "framed_magnitude": (tensor_core, "nnaudio_tpu/ops/framed_matmul.py:273", "highest"),
-        "framed_filterbank": (analysis, "nnaudio_tpu/ops/framed_matmul.py:296", "highest"),
+        "framed_filterbank": (tensor_core, "nnaudio_tpu/ops/framed_matmul.py:296", "highest"),
         "synthesis_ola": ("nnaudio_tpu_torch/csrc/synthesis_ola.cu",
                           "nnaudio_tpu/ops/framed_matmul.py:878", "highest"),
-        "gl_step": (analysis, "nnaudio_tpu/ops/framed_matmul.py:239", "default"),
+        "gl_step": (tensor_core, "nnaudio_tpu/ops/framed_matmul.py:239", "default"),
         "framed_pair": (tensor_core, "nnaudio_tpu/ops/framed_matmul.py:205", "highest"),
         "framed_magnitude_kchunk": ("nnaudio_tpu_torch/csrc/framed_kchunk.cu",
                                     "nnaudio_tpu/ops/framed_matmul.py:482", "highest"),

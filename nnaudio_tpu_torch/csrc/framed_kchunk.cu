@@ -3,7 +3,7 @@
 //
 // Replaces nnaudio_tpu/ops/framed_matmul.py _magnitude_kchunk_kernel
 // (launched by _framed_magnitude_kchunk, planned by _plan_kchunk). It
-// computes the same function as K1 (framed_analysis.cu magnitude_kernel),
+// computes the same function as K1 (framed_tc.cu, MAGNITUDE / POWER),
 //   re[b,f,t] = sum_k x[b, t*hop + k] * wcos[f,k]      (im with wsin)
 //   out[b,f,t] = sqrt(re^2 + im^2 + eps), or the power itself when `square`,
 // for a bank of few bins (F <= 128) and a long contraction (N in the

@@ -1,29 +1,47 @@
-// Framed analysis on Hopper's tensor cores (sm_90a): the STFT magnitude /
-// power (K1) and the plain re/im pair (K5) on one `wgmma` main loop.
+// Framed analysis on Hopper's tensor cores (sm_90a): one `wgmma` main loop
+// with four epilogues, for four kernels of the STFT family.
 //
 // Replaces nnaudio_tpu/ops/framed_matmul.py:
-//   K1  _magnitude_kernel :273  (launched by _framed_analysis, pair=False)
-//   K5  _pair_kernel      :205  (launched by _framed_analysis, pair=True)
+//   K5  _pair_kernel        :205  (launched by _framed_analysis, pair=True)
+//   K4  _gl_step_kernel     :239  (launched by _framed_gl_step)
+//   K1  _magnitude_kernel   :273  (launched by _framed_analysis, pair=False)
+//   K2  _filterbank_kernel  :296  (launched by _framed_filterbank)
 //
 // For the cos and sin bases (F, N) and a signal x (B, L), any hop >= 1,
 //   re[b,f,t] = sum_k x[b, t*hop + k] * wcos[f,k]
 //   im[b,f,t] = sum_k x[b, t*hop + k] * wsin[f,k]
-// K5 stores (re, im) as two (B, F, T) fp32 arrays; K1 stores
-// sqrt(re^2 + im^2 + eps), or the power when `square`.
+// and then, by epilogue:
+// - PAIR (K5) stores (re, im) as two (B, F, T) fp32 arrays;
+// - MAGNITUDE / POWER (K1) store sqrt(re^2 + im^2 + eps), or the power;
+// - FILTERBANK (K2) projects the power onto a filterbank fb (M, F),
+//   out[b,m,t] = sum_f fb[m,f] * (re^2 + im^2 + eps): the (B, F, T) power
+//   never reaches device memory;
+// - GL_STEP (K4) is one Griffin-Lim iteration's analysis half: with
+//   r = (re, -im), n = r - mom * p and c = S * n * rsqrt(|n|^2 + 1e-32), it
+//   stores the next loop carries c_re, c_im, r_re, r_im in the carry type C
+//   (fp32 or bf16), reading p (type C) and S (fp32) at the same (b,f,t). It
+//   writes fresh outputs (r is not written over p).
 //
-// Per batch item this is a GEMM D (F x T) = W (F x N) * X^T, where the frame
-// matrix X[t,k] = x[t*hop + k] is a strided, overlapping view of the signal
-// that never exists in device memory. Both operands are K-major, which is
-// what `wgmma` wants of a shared-memory operand in TF32.
+// Per batch item the pair is a GEMM D (F x T) = W (F x N) * X^T, where the
+// frame matrix X[t,k] = x[t*hop + k] is a strided, overlapping view of the
+// signal that never exists in device memory. Both operands are K-major,
+// which is what `wgmma` wants of a shared-memory operand in TF32.
 //
-// What bounds it on the H100 (4*B*T*F*N flops; 115.8 GFLOP at B=32, T=431,
-// F=1025, N=2048 over ~102 MB (K1) or ~158 MB (K5) of compulsory traffic):
-// operations. The tensor-core peaks are 495 TFLOP/s in TF32 and 989 in bf16,
-// so the floor is 0.234 ms for one TF32 product, 0.70 ms for the three
-// products that keep fp32 accuracy, and 0.117 ms in bf16. A 128 x 112 tile
-// reads 368 operand rows of 128 bytes per K chunk: 3.5 GB through L2 at that
-// shape in fp32 and 1.7 GB in bf16, where moving them takes longer than the
-// products do.
+// What bounds each on the H100 (dense tensor-core peaks 495 TFLOP/s in TF32,
+// 989 in bf16; 3.35 TB/s HBM), counting 4*B*T*F*N flops for the pair,
+// 2*B*T*F*M for the projection, each input read once and each output
+// written once:
+// - K1 / K5 at B=32, T=431, F=1025, N=2048: 115.8 GFLOP over ~102 MB (K1)
+//   or ~158 MB (K5): operations, 0.234 ms for one TF32 product, 0.70 ms for
+//   the three products that keep fp32 accuracy, 0.117 ms in bf16.
+// - K2 at B=32, T=626, F=513, M=64, N=1024: 43.4 GFLOP over ~27 MB:
+//   operations, 0.088 ms in TF32, 0.044 ms in bf16.
+// - K4 at B=32, T=862, F=513, N=1024: 58.0 GFLOP; with bf16 storage and
+//   carries ~243 MB (S in fp32, two carries in and four out): bytes, 0.072
+//   ms (the products alone 0.059 ms); in fp32 storage operations, 0.117 ms.
+// A 128 x 112 tile reads 368 operand rows of 128 bytes per K chunk: 3.5 GB
+// through L2 at K1's shape in fp32 and 1.7 GB in bf16, where moving them
+// takes longer than the products do.
 //
 // Design:
 // - A block owns 128 bins x BT frames of one batch item (BT = 128, 112 or 64,
@@ -33,8 +51,8 @@
 //   tile against the one shared frame tile: `wgmma` m64nBTk8 (TF32) or
 //   m64nBTk16 (bf16) with A (the basis) from registers and B (the frames)
 //   from shared memory, fp32 accumulators in registers, BT/2 each for re and
-//   im, which land in the same thread, so both epilogues stay in registers.
-//   A warpgroup whose 64 bins all lie past F leaves at once.
+//   im, which land in the same thread, so every epilogue starts from
+//   registers. A warpgroup whose 64 bins all lie past F leaves at once.
 // - Precision by storage type. fp32 storage: 3xTF32. Each operand is split
 //   a = hi + lo, hi = tf32_rna(a), lo = tf32_rna(a - hi), in registers: the
 //   frames by the loaders on the way into shared memory, the basis by the
@@ -48,8 +66,8 @@
 //   and the bytes of the TMA loads; `empty` the multiplying threads'. Rows
 //   are 128 bytes (32 fp32 or 64 bf16 samples of K). The frame tile lies in
 //   the 128-byte swizzle `wgmma` reads (16-byte chunk j of row r at chunk
-//   j ^ (r % 8)); the basis tiles use the same pattern so that a thread's
-//   reads of its A registers hit 32 banks.
+//   j ^ (r % 8)); the basis tiles use the same pattern so that the
+//   `ldmatrix` reads of the A registers hit 32 banks.
 // - The loaders take any hop, N, F, T and any pointer alignment, and every
 //   route leaves zeros for t >= T, k >= N and f >= F. The bases go by TMA, one
 //   128-row box per tile from a tensor map over (F, N) with the 128-byte
@@ -62,8 +80,27 @@
 //   frame tile at an odd hop or batch-row base, nor split fp32 on the way.
 //   Eight loading warps, not four: a warp keeps few copies in flight, and
 //   with four the ring ran dry.
-// - The epilogue parks each warp's 16 bins x BT frames in the ring, once it
-//   is free, and stores them row by row: 32 consecutive frames a store.
+// - PAIR, MAGNITUDE, POWER and GL_STEP park each warp's 16 bins x BT frames
+//   in the ring, once it is free (GL_STEP both re and im: 2 x 16 x (BT + 4)
+//   floats a warp, at most 135 KB), and walk them row by row, 32
+//   consecutive frames at a time: GL_STEP reads p and S and writes its four
+//   carries in the same coalesced rows.
+// - FILTERBANK. Each multiplying thread turns its re, im into the power of
+//   its bins and parks it in the ring as the K-major operand [frame][bin] of
+//   a second product, in the same swizzle: 32-bin tiles in hi and lo planes
+//   (fp32) or 64-bin tiles rounded to bf16, as the TPU kernel's DEFAULT-
+//   precision dot rounds it. The block then projects its 128 bins,
+//   D (64 mels x BT) = fb[m0:m0+64, f0:f0+128] * P^T, the 64-row m-tiles of
+//   M dealt to the warpgroups in turn. fb is the A operand, read from L2
+//   into registers and, in fp32, split as the basis is; each 32-bin chunk is
+//   summed from zero and added on the CUDA cores, as in consume_stage. Bins
+//   at or past F meet zero fb columns. Each block writes its M x BT partial
+//   sum to an fp32 workspace (ceil(F/128), B, M, Tp), Tp = T rounded up to
+//   8, and filterbank_reduce_kernel sums the bin tiles in index order into
+//   (B, M, T). The workspace is 26 MB at K2's shape above. The alternative,
+//   each block walking all of F itself, has no registers for it (the fp32
+//   loop at BT = 112 holds 200 of a multiplying thread's 216) and would
+//   leave B * ceil(T/BT) blocks, under one wave at B=32, T=431.
 // - Deterministic: fixed summation order, no atomics, no library call.
 //
 // Storage type S is float (highest, tensorfloat32) or bf16 (default mode).
@@ -78,29 +115,57 @@ namespace {
 
 constexpr int NT = 512;               // two multiplying warpgroups, then two loading ones
 constexpr int LOADERS = 256;          // threads of the loading warpgroups
-// registers per thread after `setmaxnreg`: 256 * 208 + 256 * 48 = 65,536,
-// the 512 * 128 that the block is launched with
-constexpr int MULTIPLIER_REGS = 208;
-constexpr int LOADER_REGS = 48;
 constexpr int BM = 128;               // bins per block, 64 per warpgroup
 constexpr int ROW_BYTES = 128;        // one tile row = one swizzle span of K
 constexpr int TILE_BYTES = BM * ROW_BYTES;  // 16 KB; frame tiles have <= 128 rows
 constexpr int TILE_CHUNKS = 4;        // 16-byte chunks of one tile a loader thread moves
 
-enum Epilogue { PAIR = 0, MAGNITUDE = 1, POWER = 2 };
+enum Epilogue { PAIR = 0, MAGNITUDE = 1, POWER = 2, FILTERBANK = 3, GL_STEP = 4 };
+
+// The operands of FILTERBANK and GL_STEP, passed by value.
+struct EpilogueArgs {
+  const void* fbT;    // FILTERBANK: the filterbank transposed, (F, M), type S
+  float* work;        // FILTERBANK: partial sums, (ceil(F/128), B, M, Tp)
+  int M, Tp;
+  const float* mag;   // GL_STEP: the target magnitudes S, (B, F, T)
+  const void* p_re;   // GL_STEP: the previous analysis, (B, F, T), type C
+  const void* p_im;
+  void* c_re;         // GL_STEP: the four carries out, (B, F, T), type C
+  void* c_im;
+  void* r_re;
+  void* r_im;
+  float mom;
+  int carry_bf16;
+};
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // A stage holds the cos and the sin tile as they are in memory and the frame
 // tile in PLANES planes (fp32: hi and lo).
+//
+// Registers per thread after `setmaxnreg`, multiplying + loading warpgroups:
+// 256 * (MULTIPLIER_REGS + LOADER_REGS) = 65,536, the 512 * 128 that the
+// block is launched with. fp32 at BT = 112 holds re, im and the chunk sum
+// (3 * 56) and 32 fragment registers: at 208 it spilled five accumulators
+// every K chunk, at 216 none, and its loaders' spills at 40 cost less than
+// that (5% faster at K1's shape). bf16 fits 208 and its loaders need 48.
 template <typename S> struct Storage;
 template <> struct Storage<float> {
   static constexpr int PLANES = 2;
   static constexpr int BK = 32;       // samples of K per 128-byte row
   static constexpr int STAGES = 3;    // 64 KB each
+  static constexpr int MULTIPLIER_REGS = 216;
+  static constexpr int LOADER_REGS = 40;
 };
 template <> struct Storage<__nv_bfloat16> {
   static constexpr int PLANES = 1;
   static constexpr int BK = 64;
   static constexpr int STAGES = 4;    // 48 KB each
+  static constexpr int MULTIPLIER_REGS = 208;
+  static constexpr int LOADER_REGS = 48;
 };
 
 // ------------------------------------------------------------------ wgmma --
@@ -370,21 +435,23 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // --------------------------------------------------------------- products --
 // A thread's A registers of the four K steps of one chunk, read from a basis
-// tile as it was copied (16-byte chunk j of row r at chunk j ^ (r % 8)).
-// `row_addr` is the shared address of the thread's row g, `swz` = (g % 8) << 4,
-// `word` = 4 * (lane % 4).
-__device__ __forceinline__ void load_a(uint32_t row_addr, uint32_t swz,
-                                       uint32_t word, uint32_t (&a)[4][4]) {
+// tile as it was copied (16-byte chunk j of row r at chunk j ^ (r % 8)) by
+// `ldmatrix`: per K step four 8-row matrices of 16 bytes, rows 0-7 and 8-15
+// of the warp's 16 at chunks 2 ks and 2 ks + 1. Lane l gives the address of
+// row l % 8 + 8 ((l / 8) % 2) at chunk 2 ks + l / 16 (`lane_row` is that
+// row's shared address, `lane_swz` = l % 8, `lane_h` = l / 16) and receives
+// word l % 4 of row l / 4 of each: the layout `wgmma` wants of A. Four
+// addresses a chunk where reads of single words took eight, which held
+// eight registers through the products and were spilled (fp32, BT = 112).
+__device__ __forceinline__ void load_a(uint32_t lane_row, uint32_t lane_swz,
+                                       uint32_t lane_h, uint32_t (&a)[4][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t at = row_addr + ((((2 * ks + h) << 4) ^ swz) | word);
-      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(a[ks][2 * h]) : "r"(at));
-      asm volatile("ld.shared.b32 %0, [%1];\n"
-                   : "=r"(a[ks][2 * h + 1])
-                   : "r"(at + 8 * ROW_BYTES));
-    }
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint32_t at = lane_row + (((2 * ks + lane_h) ^ lane_swz) << 4);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a[ks][0]), "=r"(a[ks][1]), "=r"(a[ks][2]), "=r"(a[ks][3])
+                 : "r"(at));
+  }
 }
 
 // One K chunk of one warpgroup from one stage: re += cos * frames^T,
@@ -401,8 +468,8 @@ __device__ __forceinline__ void load_a(uint32_t row_addr, uint32_t swz,
 // (3.5e-7 at N = 2048).
 template <int BT>
 __device__ __forceinline__ void consume_stage(const float*, uint32_t stage,
-                                              uint32_t row_off, uint32_t swz,
-                                              uint32_t word, float (&re)[BT / 2],
+                                              uint32_t lane_row, uint32_t lane_swz,
+                                              uint32_t lane_h, float (&re)[BT / 2],
                                               float (&im)[BT / 2]) {
   const uint64_t x_hi = tile_descriptor(stage + 2 * TILE_BYTES);
   const uint64_t x_lo = tile_descriptor(stage + 3 * TILE_BYTES);
@@ -410,7 +477,7 @@ __device__ __forceinline__ void consume_stage(const float*, uint32_t stage,
   uint32_t hi[4][4], lo[4][4];
 #pragma unroll
   for (int basis = 0; basis < 2; ++basis) {
-    load_a(stage + basis * TILE_BYTES + row_off, swz, word, hi);
+    load_a(stage + basis * TILE_BYTES + lane_row, lane_swz, lane_h, hi);
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
@@ -444,13 +511,13 @@ __device__ __forceinline__ void consume_stage(const float*, uint32_t stage,
 // bf16 storage: one product, summed in `wgmma`.
 template <int BT>
 __device__ __forceinline__ void consume_stage(const __nv_bfloat16*, uint32_t stage,
-                                              uint32_t row_off, uint32_t swz,
-                                              uint32_t word, float (&re)[BT / 2],
+                                              uint32_t lane_row, uint32_t lane_swz,
+                                              uint32_t lane_h, float (&re)[BT / 2],
                                               float (&im)[BT / 2]) {
   const uint64_t x = tile_descriptor(stage + 2 * TILE_BYTES);
   uint32_t c[4][4], s[4][4];
-  load_a(stage + row_off, swz, word, c);
-  load_a(stage + TILE_BYTES + row_off, swz, word, s);
+  load_a(stage + lane_row, lane_swz, lane_h, c);
+  load_a(stage + TILE_BYTES + lane_row, lane_swz, lane_h, s);
   fence_registers(re);
   fence_registers(im);
   fence_registers(c);
@@ -469,6 +536,195 @@ __device__ __forceinline__ void consume_stage(const __nv_bfloat16*, uint32_t sta
   fence_registers(s);
 }
 
+// ------------------------------------------------------------- FILTERBANK --
+// The power of a thread's accumulators, parked as the B operand of the
+// projection: tile rows are frames, K is bins, in the 128-byte swizzle.
+// Accumulator i of lane l of warp w of warpgroup g holds bin
+// 64g + 16w + l/4 + 8*((i/2)%2) of the block and frame 8*(i/4) + 2*(l%4) + i%2.
+// fp32: 32-bin tiles, the hi plane at tile 2c and the lo plane at 2c + 1.
+template <int BT>
+__device__ __forceinline__ void park_power(const float*, const float (&re)[BT / 2],
+                                           const float (&im)[BT / 2],
+                                           unsigned char* tiles, int bin0,
+                                           int lane, float eps) {
+#pragma unroll
+  for (int i = 0; i < BT / 2; ++i) {
+    const int bin = bin0 + lane / 4 + 8 * ((i / 2) % 2), kk = bin & 31;
+    const int frame = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+    const float p = re[i] * re[i] + im[i] * im[i] + eps;
+    const uint32_t hi = tf32_rna(p), lo = tf32_rna(p - __uint_as_float(hi));
+    unsigned char* at = tiles + 2 * (bin >> 5) * TILE_BYTES + frame * ROW_BYTES +
+                        ((((kk >> 2) ^ (frame & 7)) << 4) | ((kk & 3) << 2));
+    *reinterpret_cast<uint32_t*>(at) = hi;
+    *reinterpret_cast<uint32_t*>(at + TILE_BYTES) = lo;
+  }
+}
+// bf16: 64-bin tiles, the power rounded to bf16
+template <int BT>
+__device__ __forceinline__ void park_power(const __nv_bfloat16*,
+                                           const float (&re)[BT / 2],
+                                           const float (&im)[BT / 2],
+                                           unsigned char* tiles, int bin0,
+                                           int lane, float eps) {
+#pragma unroll
+  for (int i = 0; i < BT / 2; ++i) {
+    const int bin = bin0 + lane / 4 + 8 * ((i / 2) % 2), kk = bin & 63;
+    const int frame = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+    const float p = re[i] * re[i] + im[i] * im[i] + eps;
+    unsigned char* at = tiles + (bin >> 6) * TILE_BYTES + frame * ROW_BYTES +
+                        ((((kk >> 3) ^ (frame & 7)) << 4) | ((kk & 7) << 1));
+    *reinterpret_cast<__nv_bfloat16*>(at) = __float2bfloat16(p);
+  }
+}
+
+// fb[m, f] from the transposed filterbank, zero outside (F, M)
+__device__ __forceinline__ float fb_value(const float* __restrict__ fbT, int f,
+                                          int m, int F, int M) {
+  return f < F && m < M ? __ldg(fbT + static_cast<long long>(f) * M + m) : 0.f;
+}
+__device__ __forceinline__ uint32_t fb_bits(const __nv_bfloat16* __restrict__ fbT,
+                                            int f, int m, int F, int M) {
+  return f < F && m < M
+             ? static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(fbT) +
+                                           static_cast<long long>(f) * M + m))
+             : 0u;
+}
+
+// acc (64 mels x BT frames) += fb[m-tile, f0:f0+128] * P^T for the bins
+// below F. `m_row` is the thread's mel row g of the tile (the A rows are
+// m_row and m_row + 8), `tiles` the shared address of the parked power.
+// fp32: per 32-bin chunk lo*hi, hi*lo, hi*hi summed from zero, then added to
+// acc on the CUDA cores, as in consume_stage.
+template <int BT>
+__device__ __forceinline__ void project_power(const float* __restrict__ fbT,
+                                              uint32_t tiles, int F, int M,
+                                              int f0, int m_row, int lane,
+                                              float (&acc)[BT / 2]) {
+  float part[BT / 2];
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll 1
+  for (int c = 0; c < 4 && f0 + 32 * c < F; ++c) {
+    // A registers (row, bin) of K step ks: (g, k), (g + 8, k), (g, k + 4),
+    // (g + 8, k + 4) at k = 8 ks + lane % 4
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v = fb_value(fbT, f0 + 32 * c + 8 * ks + lane % 4 + 4 * (j / 2),
+                                 m_row + 8 * (j % 2), F, M);
+        hi[ks][j] = tf32_rna(v);
+        lo[ks][j] = tf32_rna(v - __uint_as_float(hi[ks][j]));
+      }
+    const uint64_t p_hi = tile_descriptor(tiles + 2 * c * TILE_BYTES);
+    const uint64_t p_lo = tile_descriptor(tiles + (2 * c + 1) * TILE_BYTES);
+    fence_registers(part);
+    fence_registers(hi);
+    fence_registers(lo);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Mma<float, BT>::run(part, lo[ks], p_hi + 2 * ks, ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Mma<float, BT>::run(part, hi[ks], p_lo + 2 * ks, 1);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Mma<float, BT>::run(part, hi[ks], p_hi + 2 * ks, 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_registers(part);
+    fence_registers(hi);
+    fence_registers(lo);
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i) acc[i] += part[i];
+  }
+}
+// bf16: one product per 64-bin chunk, summed in `wgmma`. A register j of K
+// step ks holds the bins k and k + 1, k = 16 ks + 2 (lane % 4) + 8 (j / 2),
+// the lower in the low half.
+template <int BT>
+__device__ __forceinline__ void project_power(const __nv_bfloat16* __restrict__ fbT,
+                                              uint32_t tiles, int F, int M,
+                                              int f0, int m_row, int lane,
+                                              float (&acc)[BT / 2]) {
+  uint32_t a[4][4];
+#pragma unroll 1
+  for (int c = 0; c < 2 && f0 + 64 * c < F; ++c) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int f = f0 + 64 * c + 16 * ks + 2 * (lane % 4) + 8 * (j / 2);
+        const int m = m_row + 8 * (j % 2);
+        a[ks][j] = fb_bits(fbT, f, m, F, M) | (fb_bits(fbT, f + 1, m, F, M) << 16);
+      }
+    const uint64_t p = tile_descriptor(tiles + c * TILE_BYTES);
+    fence_registers(acc);
+    fence_registers(a);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Mma<__nv_bfloat16, BT>::run(acc, a[ks], p + 2 * ks, 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_registers(acc);
+    fence_registers(a);
+  }
+}
+
+// out[b,m,t] = sum over the bin tiles j, in order, of work[j,b,m,t]
+__global__ void filterbank_reduce_kernel(const float* __restrict__ work,
+                                         float* __restrict__ out, int tiles,
+                                         long long rows, int T, int Tp) {
+  const long long n = rows * T, tile_stride = rows * Tp;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long row = e / T;
+    const float* w = work + row * Tp + (e - row * T);
+    float s = w[0];
+    for (int j = 1; j < tiles; ++j) s += w[j * tile_stride];
+    out[e] = s;
+  }
+}
+
+// ---------------------------------------------------------------- GL_STEP --
+// The Griffin-Lim update of a warp's parked 16 bins x BT frames (re at
+// `park`, im 16 rows below), 32 consecutive frames of a row a step, in
+// batches of eight steps whose loads of p and S are all issued before the
+// first is used: one step at a time left a warp a single load in flight.
+template <typename C, int BT>
+__device__ __forceinline__ void gl_step_rows(const float* park, const EpilogueArgs& ep,
+                                             long long base, int f_warp, int F,
+                                             int T, int t0, int lane) {
+  constexpr int PITCH = BT + 4, COLS = (BT + 31) / 32, BATCH = 8;
+  const C* p_re = static_cast<const C*>(ep.p_re);
+  const C* p_im = static_cast<const C*>(ep.p_im);
+#pragma unroll 1
+  for (int i0 = 0; i0 < 16 * COLS; i0 += BATCH) {
+    float pr[BATCH], pi[BATCH], mag[BATCH];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int row = (i0 + j) / COLS, col = lane + 32 * ((i0 + j) % COLS);
+      const long long o = base + static_cast<long long>(row) * T + col;
+      const bool ok = f_warp + row < F && col < BT && t0 + col < T;
+      pr[j] = ok ? to_float(p_re[o]) : 0.f;
+      pi[j] = ok ? to_float(p_im[o]) : 0.f;
+      mag[j] = ok ? ep.mag[o] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int row = (i0 + j) / COLS, col = lane + 32 * ((i0 + j) % COLS);
+      if (!(f_warp + row < F && col < BT && t0 + col < T)) continue;
+      const long long o = base + static_cast<long long>(row) * T + col;
+      const float rr = park[row * PITCH + col];
+      const float ri = -park[(16 + row) * PITCH + col];  // reference sign convention
+      const float nr = rr - ep.mom * pr[j];
+      const float ni = ri - ep.mom * pi[j];
+      const float scale = mag[j] * rsqrtf(nr * nr + ni * ni + 1e-32f);
+      store_as(static_cast<C*>(ep.c_re) + o, nr * scale);
+      store_as(static_cast<C*>(ep.c_im) + o, ni * scale);
+      store_as(static_cast<C*>(ep.r_re) + o, rr);
+      store_as(static_cast<C*>(ep.r_im) + o, ri);
+    }
+  }
+}
+
 // grid (ceil(T/BT), ceil(F/128), B); threads: two multiplying warpgroups,
 // then two loading ones
 template <typename S, int BT>
@@ -477,6 +733,7 @@ __global__ void __launch_bounds__(NT, 1) framed_tc_kernel(
     const S* __restrict__ wsin, float* __restrict__ out0,
     float* __restrict__ out1, int L, int N, int hop, int F, int T, float eps,
     int epilogue, int vb_w, int vb_x, int use_tma,
+    const __grid_constant__ EpilogueArgs ep,
     const __grid_constant__ CUtensorMap map_cos,
     const __grid_constant__ CUtensorMap map_sin) {
   constexpr int BK = Storage<S>::BK;
@@ -498,14 +755,14 @@ __global__ void __launch_bounds__(NT, 1) framed_tc_kernel(
   const int t0 = blockIdx.x * BT, f0 = blockIdx.y * BM;
   const int wg = threadIdx.x / 128;
   const int chunks = (N + BK - 1) / BK;
+  // warpgroups with bins: one whose 64 bins all lie past F multiplies nothing
+  const int groups = f0 + 64 < F ? 2 : 1;
 
   if (threadIdx.x == 0) {
-    // a warpgroup whose 64 bins all lie past F multiplies nothing
-    const int multipliers = f0 + 64 < F ? 256 : 128;
     for (int s = 0; s < STAGES; ++s) {
       // every loader arrives twice: behind its copies, and after its stores
       mbar_init(full + 8 * s, 2 * LOADERS);
-      mbar_init(empty + 8 * s, multipliers);
+      mbar_init(empty + 8 * s, 128 * groups);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -513,7 +770,7 @@ __global__ void __launch_bounds__(NT, 1) framed_tc_kernel(
 
   if (wg >= 2) {
     // ---- a loading warpgroup ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(LOADER_REGS));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Storage<S>::LOADER_REGS));
     const int tid = threadIdx.x - 256;
     const S* xt =
         x + static_cast<long long>(b) * L + static_cast<long long>(t0) * hop;
@@ -555,11 +812,12 @@ __global__ void __launch_bounds__(NT, 1) framed_tc_kernel(
   }
 
   // ---- a multiplying warpgroup: bins [f0 + 64 wg, f0 + 64 wg + 64) ----
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(MULTIPLIER_REGS));
-  if (f0 + 64 * wg >= F) return;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Storage<S>::MULTIPLIER_REGS));
+  if (wg >= groups) return;
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
-  const uint32_t row_off = (64 * wg + 16 * warp + lane / 4) * ROW_BYTES;
-  const uint32_t swz = ((lane / 4) & 7) << 4, word = 4 * (lane % 4);
+  // the basis row whose address this lane gives `ldmatrix` (see load_a)
+  const uint32_t lane_row = (64 * wg + 16 * warp + lane % 8 + 8 * ((lane / 8) % 2)) * ROW_BYTES;
+  const uint32_t lane_swz = lane % 8, lane_h = lane / 16;
   float re[BT / 2], im[BT / 2];
 #pragma unroll
   for (int i = 0; i < BT / 2; ++i) re[i] = im[i] = 0.f;
@@ -572,22 +830,65 @@ __global__ void __launch_bounds__(NT, 1) framed_tc_kernel(
     // would wait for the copies in flight and undo the ring.
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     consume_stage<BT>(static_cast<const S*>(nullptr), smem_addr + s * STAGE_BYTES,
-                      row_off, swz, word, re, im);
+                      lane_row, lane_swz, lane_h, re, im);
     mbar_arrive(empty + 8 * s);
   }
 
   // Every chunk has been loaded and multiplied: the ring is free once the
   // other multiplying warpgroup, if it has bins, is through its last stage.
-  asm volatile("bar.sync 1, %0;\n" ::"r"(f0 + 64 < F ? 256 : 128) : "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"r"(128 * groups) : "memory");
+
+  if (epilogue == FILTERBANK) {
+    // park the power as the projection's B operand, then make the stores
+    // visible to the tensor cores (async proxy) before either warpgroup
+    // reads the other's bins
+    park_power<BT>(static_cast<const S*>(nullptr), re, im, smem,
+                   64 * wg + 16 * warp, lane, eps);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"r"(128 * groups) : "memory");
+    const S* fbT = static_cast<const S*>(ep.fbT);
+    float* work = ep.work + static_cast<long long>(blockIdx.y * gridDim.z + b) * ep.M * ep.Tp;
+    for (int mt = wg; 64 * mt < ep.M; mt += groups) {
+      const int m_row = 64 * mt + 16 * warp + lane / 4;
+      float acc[BT / 2];
+#pragma unroll
+      for (int i = 0; i < BT / 2; ++i) acc[i] = 0.f;
+      project_power<BT>(fbT, smem_addr, F, ep.M, f0, m_row, lane, acc);
+      // accumulator i holds mel m_row + 8*((i/2)%2), frame 8*(i/4) + 2*(lane%4) + i%2
+#pragma unroll
+      for (int i = 0; i < BT / 2; i += 2) {
+        const int m = m_row + 8 * ((i / 2) % 2), t = t0 + 8 * (i / 4) + 2 * (lane % 4);
+        if (m < ep.M && t < ep.Tp)
+          *reinterpret_cast<float2*>(work + static_cast<long long>(m) * ep.Tp + t) =
+              make_float2(acc[i], acc[i + 1]);
+      }
+    }
+    return;
+  }
 
   // Accumulator i of lane l of warp w holds bin 16w + l/4 + 8*((i/2)%2),
   // frame 8*(i/4) + 2*(l%4) + i%2. A warp parks its 16 bins x BT frames in
-  // shared memory and stores them row by row, so that a store instruction
-  // writes 32 consecutive frames of one bin.
+  // shared memory (GL_STEP: re, then im 16 rows below) and walks them row by
+  // row, so that a store instruction writes 32 consecutive frames of one bin.
   constexpr int PITCH = BT + 4;  // floats; keeps the float2 writes off one bank
-  float* park = reinterpret_cast<float*>(smem) + (threadIdx.x / 32) * 16 * PITCH;
+  float* park = reinterpret_cast<float*>(smem) + (threadIdx.x / 32) * 32 * PITCH;
   const int f_warp = f0 + 64 * wg + 16 * warp;
   const long long base = (static_cast<long long>(b) * F + f_warp) * T + t0;
+  if (epilogue == GL_STEP) {
+#pragma unroll
+    for (int i = 0; i < BT / 2; i += 2) {
+      const int row = lane / 4 + 8 * ((i / 2) % 2), col = 8 * (i / 4) + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(park + row * PITCH + col) = make_float2(re[i], re[i + 1]);
+      *reinterpret_cast<float2*>(park + (16 + row) * PITCH + col) =
+          make_float2(im[i], im[i + 1]);
+    }
+    __syncwarp();
+    if (ep.carry_bf16)
+      gl_step_rows<__nv_bfloat16, BT>(park, ep, base, f_warp, F, T, t0, lane);
+    else
+      gl_step_rows<float, BT>(park, ep, base, f_warp, F, T, t0, lane);
+    return;
+  }
 #pragma unroll
   for (int pass = 0; pass < 2; ++pass) {
     if (pass == 1 && epilogue != PAIR) break;
@@ -664,7 +965,8 @@ bool basis_map(const void* w, int F, int N, CUtensorMap* map) {
 template <typename S, int BT>
 cudaError_t launch_bt(const void* x, const void* wcos, const void* wsin,
                       void* out0, void* out1, int B, int L, int N, int hop,
-                      int F, int T, float eps, int epilogue, cudaStream_t st) {
+                      int F, int T, float eps, int epilogue,
+                      const EpilogueArgs& ep, cudaStream_t st) {
   constexpr int SMEM =
       Storage<S>::STAGES * (2 + Storage<S>::PLANES) * TILE_BYTES + 1024;
   const uintptr_t es = sizeof(S);
@@ -685,7 +987,7 @@ cudaError_t launch_bt(const void* x, const void* wcos, const void* wsin,
       static_cast<const S*>(x), static_cast<const S*>(wcos),
       static_cast<const S*>(wsin), static_cast<float*>(out0),
       static_cast<float*>(out1), L, N, hop, F, T, eps, epilogue, vb_w, vb_x,
-      use_tma, map_cos, map_sin);
+      use_tma, ep, map_cos, map_sin);
   return cudaGetLastError();
 }
 
@@ -694,15 +996,30 @@ cudaError_t launch_bt(const void* x, const void* wcos, const void* wsin,
 template <typename S>
 cudaError_t launch(const void* x, const void* wcos, const void* wsin,
                    void* out0, void* out1, int B, int L, int N, int hop, int F,
-                   int T, float eps, int epilogue, cudaStream_t st) {
+                   int T, float eps, int epilogue, const EpilogueArgs& ep,
+                   cudaStream_t st) {
   auto padded = [T](int bt) { return (T + bt - 1) / bt * bt; };
   if constexpr (sizeof(S) == 2) {
     if (padded(128) <= padded(112) && padded(128) <= padded(64))
-      return launch_bt<S, 128>(x, wcos, wsin, out0, out1, B, L, N, hop, F, T, eps, epilogue, st);
+      return launch_bt<S, 128>(x, wcos, wsin, out0, out1, B, L, N, hop, F, T,
+                               eps, epilogue, ep, st);
   }
   if (padded(112) <= padded(64))
-    return launch_bt<S, 112>(x, wcos, wsin, out0, out1, B, L, N, hop, F, T, eps, epilogue, st);
-  return launch_bt<S, 64>(x, wcos, wsin, out0, out1, B, L, N, hop, F, T, eps, epilogue, st);
+    return launch_bt<S, 112>(x, wcos, wsin, out0, out1, B, L, N, hop, F, T,
+                             eps, epilogue, ep, st);
+  return launch_bt<S, 64>(x, wcos, wsin, out0, out1, B, L, N, hop, F, T, eps,
+                          epilogue, ep, st);
+}
+
+cudaError_t launch_storage(int bf16, const void* x, const void* wcos,
+                           const void* wsin, void* out0, void* out1, int B,
+                           int L, int N, int hop, int F, int T, float eps,
+                           int epilogue, const EpilogueArgs& ep, cudaStream_t st) {
+  if (bf16)
+    return launch<__nv_bfloat16>(x, wcos, wsin, out0, out1, B, L, N, hop, F, T,
+                                 eps, epilogue, ep, st);
+  return launch<float>(x, wcos, wsin, out0, out1, B, L, N, hop, F, T, eps,
+                       epilogue, ep, st);
 }
 
 }  // namespace
@@ -712,22 +1029,61 @@ extern "C" int nnaudio_framed_magnitude(const void* x, const void* wcos,
                                         int L, int N, int hop, int F, int T,
                                         float eps, int square, int bf16,
                                         void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int epilogue = square ? POWER : MAGNITUDE;
-  if (bf16)
-    return launch<__nv_bfloat16>(x, wcos, wsin, out, nullptr, B, L, N, hop, F,
-                                 T, eps, epilogue, st);
-  return launch<float>(x, wcos, wsin, out, nullptr, B, L, N, hop, F, T, eps,
-                       epilogue, st);
+  return launch_storage(bf16, x, wcos, wsin, out, nullptr, B, L, N, hop, F, T,
+                        eps, square ? POWER : MAGNITUDE, EpilogueArgs{},
+                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int nnaudio_framed_pair(const void* x, const void* wcos,
                                    const void* wsin, void* re, void* im, int B,
                                    int L, int N, int hop, int F, int T,
                                    int bf16, void* stream) {
+  return launch_storage(bf16, x, wcos, wsin, re, im, B, L, N, hop, F, T, 0.f,
+                        PAIR, EpilogueArgs{}, static_cast<cudaStream_t>(stream));
+}
+
+// fbT is the (F, M) transpose of the filterbank in the storage type; work
+// holds ceil(F/128) * B * M * Tp floats, Tp = T rounded up to a multiple of 8.
+extern "C" int nnaudio_framed_filterbank(const void* x, const void* wcos,
+                                         const void* wsin, const void* fbT,
+                                         void* out, void* work, int B, int L,
+                                         int N, int hop, int F, int T, int M,
+                                         float eps, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(x, wcos, wsin, re, im, B, L, N, hop, F, T,
-                                 0.f, PAIR, st);
-  return launch<float>(x, wcos, wsin, re, im, B, L, N, hop, F, T, 0.f, PAIR, st);
+  EpilogueArgs ep{};
+  ep.fbT = fbT;
+  ep.work = static_cast<float*>(work);
+  ep.M = M;
+  ep.Tp = (T + 7) / 8 * 8;
+  cudaError_t err = launch_storage(bf16, x, wcos, wsin, nullptr, nullptr, B, L,
+                                   N, hop, F, T, eps, FILTERBANK, ep, st);
+  if (err != cudaSuccess) return err;
+  const long long rows = static_cast<long long>(B) * M, n = rows * T;
+  const int blocks = static_cast<int>(n / 256 + 1 < 4096 ? n / 256 + 1 : 4096);
+  filterbank_reduce_kernel<<<blocks, 256, 0, st>>>(
+      static_cast<const float*>(work), static_cast<float*>(out), (F + BM - 1) / BM,
+      rows, T, ep.Tp);
+  return cudaGetLastError();
+}
+
+// S (mag) is fp32; p_re, p_im and the four outputs are fp32, or bf16 with
+// carry_bf16
+extern "C" int nnaudio_gl_step(const void* x, const void* wcos,
+                               const void* wsin, const void* mag,
+                               const void* p_re, const void* p_im, void* c_re,
+                               void* c_im, void* r_re, void* r_im, int B,
+                               int L, int N, int hop, int F, int T, float mom,
+                               int bf16, int carry_bf16, void* stream) {
+  EpilogueArgs ep{};
+  ep.mag = static_cast<const float*>(mag);
+  ep.p_re = p_re;
+  ep.p_im = p_im;
+  ep.c_re = c_re;
+  ep.c_im = c_im;
+  ep.r_re = r_re;
+  ep.r_im = r_im;
+  ep.mom = mom;
+  ep.carry_bf16 = carry_bf16;
+  return launch_storage(bf16, x, wcos, wsin, nullptr, nullptr, B, L, N, hop, F,
+                        T, 0.f, GL_STEP, ep, static_cast<cudaStream_t>(stream));
 }

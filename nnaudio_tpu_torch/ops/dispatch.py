@@ -13,6 +13,9 @@ in which case it takes the plain version on every device:
   family's wavelet banks), else K1; ``framed_filterbank``: K2;
 - ``synthesis_ola``: K3;
 - ``gl_step``: K4, one Griffin-Lim analysis step.
+
+K1, K2, K4 and K5 are one tensor-core kernel (``csrc/framed_tc.cu``) with
+four epilogues; K3 and K6 have sources of their own.
 """
 from __future__ import annotations
 

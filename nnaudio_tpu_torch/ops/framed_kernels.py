@@ -4,9 +4,9 @@
 wrapper                      CUDA kernel (``csrc/``)         TPU kernel replaced
 ===========================  ==============================  =====================
 ``framed_magnitude``         ``framed_tc.cu`` K1             ``_magnitude_kernel``
-``framed_filterbank``        ``framed_analysis.cu`` K2       ``_filterbank_kernel``
+``framed_filterbank``        ``framed_tc.cu`` K2             ``_filterbank_kernel``
 ``synthesis_ola``            ``synthesis_ola.cu`` K3         ``_synthesis_ola_kernel``
-``gl_step``                  ``framed_analysis.cu`` K4       ``_gl_step_kernel``
+``gl_step``                  ``framed_tc.cu`` K4             ``_gl_step_kernel``
 ``framed_pair``              ``framed_tc.cu`` K5             ``_pair_kernel``
 ``framed_magnitude_kchunk``  ``framed_kchunk.cu`` K6         ``_magnitude_kchunk_kernel``
 ===========================  ==============================  =====================
@@ -14,11 +14,13 @@ wrapper                      CUDA kernel (``csrc/``)         TPU kernel replaced
 K1 and K6 compute one function, ``framed_magnitude_plain``: K6 is its
 split-K form for a bank of at most 128 bins and a long contraction.
 
-K1 and K5 run on the tensor cores (``wgmma``). In fp32 storage they take
-three TF32 products of operands split as ``a = hi + lo`` and accumulate in
-fp32; :func:`tf32_split` and :func:`framed_pair_3xtf32_plain` repeat that
-arithmetic in plain PyTorch. In bf16 storage they take one bf16 product.
-K2-K4 and K6 run fp32 FMA on the CUDA cores in both storage types.
+K1, K2, K4 and K5 are one tensor-core kernel (``wgmma``) with four
+epilogues. In fp32 storage it takes three TF32 products of operands split as
+``a = hi + lo`` and accumulates in fp32; :func:`tf32_split`,
+:func:`framed_pair_3xtf32_plain`, :func:`framed_filterbank_3xtf32_plain` and
+:func:`gl_step_3xtf32_plain` repeat that arithmetic in plain PyTorch. In bf16
+storage it takes one bf16 product (K2 also rounds the power to bf16 for its
+projection). K3 and K6 run fp32 FMA on the CUDA cores in both storage types.
 
 A wrapper given a CPU tensor computes its plain version; given a CUDA tensor
 it launches its kernel or raises. It checks device, dtype and shape, makes
@@ -109,6 +111,40 @@ def framed_filterbank_plain(x, wcos, wsin, fb, hop, eps=0.0):
     return project(fb, power)
 
 
+#: bins of one block of the tensor-core kernel: K2 sums its projection over
+#: tiles of this many bins, in a workspace, in index order
+TC_BLOCK_F = 128
+#: K2's workspace pads T to a multiple of this many frames
+TC_FRAME_ALIGN = 8
+
+
+def framed_filterbank_3xtf32_plain(x, wcos, wsin, fb, hop, eps=0.0):
+    """K2 as the tensor-core kernel computes it in fp32 storage: the pair by
+    :func:`framed_pair_3xtf32_plain`, the power, then the projection of
+    split operands per 32-bin chunk (``lo*hi + hi*lo``, then ``hi*hi``),
+    the chunks of each :data:`TC_BLOCK_F`-bin tile summed in order, and the
+    tiles summed in order."""
+    re, im = framed_pair_3xtf32_plain(x, wcos, wsin, hop)
+    power = re * re + im * im + eps
+    b, f, t = power.shape
+    pad = -f % TC_BLOCK_F
+    tiles = (f + pad) // TC_BLOCK_F
+    p_hi, p_lo = (a.reshape(b, tiles, 4, 32, t)
+                  for a in tf32_split(F.pad(power, (0, 0, 0, pad))))
+    w_hi, w_lo = (a.reshape(-1, tiles, 4, 32)
+                  for a in tf32_split(F.pad(fb.float(), (0, pad))))
+    small = (torch.einsum("mjcf,bjcft->bjcmt", w_lo, p_hi)
+             + torch.einsum("mjcf,bjcft->bjcmt", w_hi, p_lo))
+    parts = small + torch.einsum("mjcf,bjcft->bjcmt", w_hi, p_hi)
+    per_tile = parts[:, :, 0]
+    for c in range(1, 4):
+        per_tile = per_tile + parts[:, :, c]
+    out = per_tile[:, 0]
+    for j in range(1, tiles):
+        out = out + per_tile[:, j]
+    return out
+
+
 def synthesis_ola_plain(spec_re, spec_im, kc, ks, hop):
     """OLA(kc^T Re - ks^T Im): (B, F, T) spectra (fp32, or bf16 carries) x
     (F, N) kernels -> (B, N + hop*(T-1)), without window normalisation."""
@@ -137,6 +173,13 @@ def gl_update(re, im_raw, S, p_re, p_im, mom):
 def gl_step_plain(x, wcos, wsin, S, p_re, p_im, hop, mom):
     """One Griffin-Lim analysis step: the plain pair, then :func:`gl_update`."""
     re, im = framed_pair_plain(x, wcos, wsin, hop)
+    return gl_update(re, im, S, p_re, p_im, mom)
+
+
+def gl_step_3xtf32_plain(x, wcos, wsin, S, p_re, p_im, hop, mom):
+    """K4 as the tensor-core kernel computes it in fp32 storage: the pair by
+    :func:`framed_pair_3xtf32_plain`, then :func:`gl_update`."""
+    re, im = framed_pair_3xtf32_plain(x, wcos, wsin, hop)
     return gl_update(re, im, S, p_re, p_im, mom)
 
 
@@ -183,9 +226,8 @@ _SIGNATURES = {
         [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
          ctypes.c_float, _INT, _INT, _VOID]),
     "nnaudio_framed_filterbank": (
-        "framed_analysis",
-        [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
-         _INT, ctypes.c_float, _INT, _VOID]),
+        "framed_tc",
+        [_VOID] * 6 + [_INT] * 7 + [ctypes.c_float, _INT, _VOID]),
     "nnaudio_synthesis_ola": (
         "synthesis_ola",
         [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
@@ -195,7 +237,7 @@ _SIGNATURES = {
         [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
          _INT, _VOID]),
     "nnaudio_gl_step": (
-        "framed_analysis",
+        "framed_tc",
         [_VOID] * 10 + [_INT] * 6 + [ctypes.c_float, _INT, _INT, _VOID]),
     "nnaudio_framed_magnitude_kchunk": (
         "framed_kchunk",
@@ -355,10 +397,15 @@ def _launch_filterbank(x, wcos, wsin, fb, hop, eps):
         raise ValueError(f"fb {tuple(fb.shape)} does not match {f} bins")
     m = fb_t.shape[1]
     out = torch.empty((b, m, t), dtype=torch.float32, device=xs.device)
+    # each block tile of bins writes its partial projection here; a second
+    # kernel sums the tiles in order
+    work = torch.empty((_ceil_div(f, TC_BLOCK_F), b, m,
+                        _ceil_div(t, TC_FRAME_ALIGN) * TC_FRAME_ALIGN),
+                       dtype=torch.float32, device=xs.device)
     with torch.cuda.device(xs.device):
         _run("nnaudio_framed_filterbank", xs.data_ptr(), wc.data_ptr(),
-             ws.data_ptr(), fb_t.data_ptr(), out.data_ptr(), *dims, m,
-             float(eps), int(xs.dtype == torch.bfloat16), _stream())
+             ws.data_ptr(), fb_t.data_ptr(), out.data_ptr(), work.data_ptr(),
+             *dims, m, float(eps), int(xs.dtype == torch.bfloat16), _stream())
     LAUNCHES["framed_filterbank"] += 1
     return out
 

@@ -105,6 +105,42 @@ def test_gl_step_plain_matches_interpreted_pallas(highest):
         _close(g, np.asarray(w[:, :f, :t], np.float32), tol)
 
 
+@pytest.mark.parametrize("b,length,n_fft,hop", [(2, 4096, 1024, 256), (1, 512, 64, 16)])
+def test_3xtf32_plain_gl_step_matches_plain_and_interpreted_pallas(b, length, n_fft, hop):
+    """K4's tensor-core arithmetic in fp32 storage (the split pair, then
+    ``gl_update``), repeated in plain PyTorch, against the plain version and
+    against ``_framed_gl_step`` (interpreted, fp32 carries), at the JAX
+    suite's two analysis cases (tests/test_ops.py:121-183): 1e-4, the fp32
+    tolerance."""
+    rng = np.random.RandomState(51)
+    f = n_fft // 2 + 1
+    x = rng.randn(b, length).astype(np.float32)
+    wcos = (rng.randn(f, n_fft) / np.sqrt(n_fft)).astype(np.float32)
+    wsin = (rng.randn(f, n_fft) / np.sqrt(n_fft)).astype(np.float32)
+    plan = framed_matmul.gl_step_plan(b, length, f, n_fft, hop, highest=True)
+    fp, tp = plan["f_padded"], plan["t_padded"]
+    t = (length - n_fft) // hop + 1
+    S = np.abs(rng.randn(b, fp, tp)).astype(np.float32)
+    S[:, f:, :] = 0.0
+    S[:, :, t:] = 0.0
+    p_re = rng.randn(b, fp, tp).astype(np.float32)
+    p_im = rng.randn(b, fp, tp).astype(np.float32)
+    static_plan = {k: plan[k] for k in ("w", "q", "n_chunks", "tile_t", "tile_f",
+                                        "bb", "slab_rows", "t_padded", "f_padded")}
+    want = _interpreted(framed_matmul._framed_gl_step, jnp.asarray(x),
+                        jnp.asarray(wcos).T, jnp.asarray(wsin).T, jnp.asarray(S),
+                        jnp.asarray(p_re), jnp.asarray(p_im), hop, mom=MOM,
+                        highest=True, **static_plan)
+    args = [torch.from_numpy(a) for a in (x, wcos, wsin)]
+    carries = [torch.from_numpy(np.ascontiguousarray(a[:, :f, :t])) for a in (S, p_re, p_im)]
+    got = fk.gl_step_3xtf32_plain(*args, *carries, hop, MOM)
+    plain = fk.gl_step_plain(*args, *carries, hop, MOM)
+    for g, p, w in zip(got, plain, want):
+        assert g.dtype == torch.float32
+        _close(g, p)
+        _close(g, np.asarray(w[:, :f, :t], np.float32))
+
+
 def test_pair_plain_matches_interpreted_pallas():
     """K5's plain version against ``framed_matmul_pair_pallas``
     (tests/test_ops.py:103-115)."""

@@ -8,8 +8,8 @@ with the same comparison helpers and tolerances, imported from it here.
 import pytest
 import torch
 
-from chip_smoke import (CARRY_TOL, MAG_TOL, MOM, TOL, gl_step_errors, pair_grads,
-                        rel_err)
+from chip_smoke import (CARRY_TOL, MAG_TOL, MOM, TOL, fp64_errors, gl_step_errors,
+                        pair_grads, rel_err)
 from nnaudio_tpu_torch import config
 from nnaudio_tpu_torch.core.frame import num_frames
 from nnaudio_tpu_torch.ops import framed_kernels as fk
@@ -170,6 +170,63 @@ def test_3xtf32_pair_is_as_accurate_as_the_fp32_product(cuda):
     got = fk.framed_pair(x, wc, wc, hop)[0]
     plain = fk.framed_pair_plain(x, wc, wc, hop)[0]
     assert rel_err(got, ref) <= 4 * rel_err(plain, ref)
+
+
+@pytest.mark.parametrize("length,n,hop,f,m", [
+    (16000 + 1024, 1024, 256, 513, 64),  # the classifier's front end, 1 s
+    (30000, 2048, 512, 1, 1),            # one bin, one mel
+    (2048 + 2 * 512, 2048, 512, 1025, 128),  # T = 3, below one frame tile
+    (4000, 400, 3, 201, 300),            # hop 3, five m-tiles of mels
+    (66151, 2048, 441, 1025, 256),       # odd length, hop 441
+    (9000, 5000, 100, 84, 40),           # an N no K chunk divides
+])
+def test_filterbank_and_gl_step_on_the_tensor_cores_twice(cuda, mode, length, n, hop, f, m):
+    """K2 and K4 (both carry types) at shapes off the tiles of the
+    tensor-core loop, against their plain versions, and a second launch
+    bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(2, length, generator=g, device=cuda)
+    wc = torch.randn(f, n, generator=g, device=cuda) * 0.05
+    ws = torch.randn(f, n, generator=g, device=cuda) * 0.05
+    fb = torch.rand(m, f, generator=g, device=cuda)
+    k2 = fk.framed_filterbank(x, wc, ws, fb, hop, eps=1e-8)
+    torch.cuda.synchronize()
+    assert k2.shape == (2, m, num_frames(length, n, hop))
+    assert rel_err(k2, fk.framed_filterbank_plain(x, wc, ws, fb, hop, eps=1e-8)) <= TOL[mode]
+    assert torch.equal(k2, fk.framed_filterbank(x, wc, ws, fb, hop, eps=1e-8))
+    shape = (2, f, num_frames(length, n, hop))
+    S = torch.rand(shape, generator=g, device=cuda)
+    for carry in (torch.float32, torch.bfloat16):
+        p_re = torch.randn(shape, generator=g, device=cuda).to(carry)
+        p_im = torch.randn(shape, generator=g, device=cuda).to(carry)
+        got = fk.gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)
+        torch.cuda.synchronize()
+        tol = max(TOL[mode], CARRY_TOL[carry])
+        r_err, c_err, mag_err, _, _ = gl_step_errors(fk, got, x, wc, ws, S, p_re,
+                                                     p_im, hop, MOM)
+        assert r_err <= tol and c_err <= tol, (r_err, c_err)
+        assert mag_err <= MAG_TOL[carry], mag_err
+        for a, b in zip(got, fk.gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)):
+            assert torch.equal(a, b)
+
+
+def test_3xtf32_filterbank_and_gl_step_are_as_accurate_as_fp32(cuda):
+    """Against fp64 versions of the same functions, K2 and K4 in fp32
+    storage err at most 4x as much as their plain fp32 versions."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    n, hop, f, m = 1024, 256, 513, 64
+    x = torch.randn(2, n + 200 * hop, generator=g, device=cuda)
+    wc = torch.randn(f, n, generator=g, device=cuda) * 0.05
+    ws = torch.randn(f, n, generator=g, device=cuda) * 0.05
+    fb = torch.rand(m, f, generator=g, device=cuda)
+    shape = (2, f, 201)
+    S = torch.rand(shape, generator=g, device=cuda)
+    p_re = torch.randn(shape, generator=g, device=cuda)
+    p_im = torch.randn(shape, generator=g, device=cuda)
+    config.set_matmul_precision("highest")
+    for name, (kernel, plain) in fp64_errors(fk, x, wc, ws, fb, S, p_re, p_im,
+                                             hop, MOM).items():
+        assert kernel <= 4 * plain, (name, kernel, plain)
 
 
 def test_kchunk_rejects_wide_banks(cuda):

@@ -204,6 +204,8 @@ def test_wrappers_reject_bad_operands():
                                     32, 0.0, False)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fk._launch_synthesis(torch.zeros(1, 65, 4), torch.zeros(1, 65, 4), w, w, 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fk._launch_filterbank(x, w, w, torch.zeros(8, 65), 32, 0.0)
     with pytest.raises(TypeError, match="float32"):
         fk._operand(torch.zeros(2, 3, dtype=torch.float64), "x", 2, torch.device("cpu"))
 
@@ -389,3 +391,80 @@ def test_3xtf32_plain_pair_matches_interpreted_pallas(length, f, n, hop):
     got = fk.framed_pair_3xtf32_plain(*map(torch.from_numpy, (x, wcos, wsin)), hop)
     for g, w in zip(got, want):
         _close(g, w)
+
+
+# the JAX suite's two analysis cases (tests/test_ops.py:121-183) as (batch,
+# length, bins, n_fft, hop), with 40 and 7 mels, and the first with 300 mels
+# (five 64-row tiles of the kernel's projection)
+FILTERBANK_CASES = [(2, 4096, 129, 1024, 256, 40), (1, 512, 17, 64, 16, 7),
+                    (2, 4096, 129, 1024, 256, 300)]
+
+
+def _filterbank_inputs(batch, length, f, n, m, seed=4):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(batch, length).astype(np.float32)
+    wcos = rng.randn(f, n).astype(np.float32)
+    wsin = rng.randn(f, n).astype(np.float32)
+    fb = (np.abs(rng.randn(m, f)) / f).astype(np.float32)
+    return x, wcos, wsin, fb
+
+
+@pytest.mark.parametrize("batch,length,f,n,hop,m", FILTERBANK_CASES)
+def test_3xtf32_plain_filterbank_matches_plain_and_interpreted_pallas(
+        batch, length, f, n, hop, m):
+    """K2's tensor-core arithmetic in fp32 storage (split pair, split
+    projection in 32-bin chunks of 128-bin tiles), repeated in plain
+    PyTorch, against the plain version and against the Pallas filterbank
+    kernel (interpreted): within 1e-4 of max |ref|, the fp32 tolerance."""
+    x, wcos, wsin, fb = _filterbank_inputs(batch, length, f, n, m)
+    got = fk.framed_filterbank_3xtf32_plain(*map(torch.from_numpy, (x, wcos, wsin, fb)),
+                                            hop, eps=1e-8)
+    plain = fk.framed_filterbank_plain(*map(torch.from_numpy, (x, wcos, wsin, fb)),
+                                       hop, eps=1e-8)
+    want = np.asarray(_interpreted(framed_matmul.framed_filterbank_pallas,
+                                   *map(jnp.asarray, (x, wcos, wsin, fb)), hop,
+                                   highest=True, eps=1e-8))
+    assert got.shape == plain.shape == want.shape
+    scale = np.abs(want).max()
+    assert float((got - plain).abs().max()) / scale <= 1e-4
+    assert np.abs(got.numpy() - want).max() / scale <= 1e-4
+
+
+@pytest.mark.parametrize("batch,length,f,n,hop,m", FILTERBANK_CASES[:2])
+def test_3xtf32_plain_filterbank_is_as_accurate_as_fp32(batch, length, f, n, hop, m):
+    """Against an fp64 filterbank of the fp64 power, the 3xTF32 arithmetic
+    errs at most 4x as much as the plain fp32 version."""
+    x, wcos, wsin, fb = _filterbank_inputs(batch, length, f, n, m)
+    frames = np.stack([x[:, i * hop:i * hop + n]
+                       for i in range((length - n) // hop + 1)], 1).astype(np.float64)
+    re = np.einsum("fn,btn->bft", wcos.astype(np.float64), frames)
+    im = np.einsum("fn,btn->bft", wsin.astype(np.float64), frames)
+    ref = np.einsum("mf,bft->bmt", fb.astype(np.float64), re * re + im * im + 1e-8)
+    args = tuple(map(torch.from_numpy, (x, wcos, wsin, fb)))
+    e_split = np.abs(fk.framed_filterbank_3xtf32_plain(*args, hop, eps=1e-8).numpy()
+                     - ref).max() / np.abs(ref).max()
+    e_plain = np.abs(fk.framed_filterbank_plain(*args, hop, eps=1e-8).numpy()
+                     - ref).max() / np.abs(ref).max()
+    assert e_split <= 4 * e_plain, (e_split, e_plain)
+
+
+@pytest.mark.parametrize("batch,length,f,n,hop,m", FILTERBANK_CASES[:2])
+def test_filterbank_plain_in_bf16_storage_matches_interpreted_pallas(
+        batch, length, f, n, hop, m):
+    """The plain version in ``default`` mode (operands rounded to bf16, as
+    the kernel reads them) against the Pallas kernel at DEFAULT precision
+    (interpreted, which keeps fp32 storage): within 5e-2 of max |ref|, the
+    bf16 tolerance."""
+    from nnaudio_tpu_torch import config
+
+    x, wcos, wsin, fb = _filterbank_inputs(batch, length, f, n, m)
+    want = np.asarray(_interpreted(framed_matmul.framed_filterbank_pallas,
+                                   *map(jnp.asarray, (x, wcos, wsin, fb)), hop,
+                                   highest=False, eps=1e-8))
+    config.set_matmul_precision("default")
+    try:
+        got = fk.framed_filterbank_plain(*map(torch.from_numpy, (x, wcos, wsin, fb)),
+                                         hop, eps=1e-8)
+    finally:
+        config.set_matmul_precision("highest")
+    assert np.abs(got.numpy() - want).max() / np.abs(want).max() <= 5e-2

@@ -58,23 +58,20 @@ def test_the_cqt_slice_is_in_the_package():
 
 
 def test_the_tensor_core_kernels_have_their_own_source():
-    """K1 and K5 live in csrc/framed_tc.cu: framed_analysis.cu keeps K2 and
-    K4 and no longer exports the magnitude or the pair, and the wrappers bind
-    both from the new library."""
+    """K1, K2, K4 and K5 live in csrc/framed_tc.cu, on its tensor-core main
+    loop, and the wrappers bind all four from it; framed_analysis.cu, the
+    CUDA-core kernels they replaced, is gone."""
     from nnaudio_tpu_torch.ops import framed_kernels as fk
 
     csrc = ROOT / "nnaudio_tpu_torch/csrc"
     tc = (csrc / "framed_tc.cu").read_text()
-    old = (csrc / "framed_analysis.cu").read_text()
-    for entry in ("nnaudio_framed_magnitude", "nnaudio_framed_pair"):
+    assert not (csrc / "framed_analysis.cu").exists()
+    for entry in ("nnaudio_framed_magnitude", "nnaudio_framed_pair",
+                  "nnaudio_framed_filterbank", "nnaudio_gl_step"):
         assert f'extern "C" int {entry}(' in tc
-        assert entry not in old
         assert fk._SIGNATURES[entry][0] == "framed_tc"
-    for gone in ("magnitude_kernel", "pair_kernel"):
-        assert gone not in old
-    for kept in ("nnaudio_framed_filterbank", "nnaudio_gl_step"):
-        assert f'extern "C" int {kept}(' in old
-        assert fk._SIGNATURES[kept][0] == "framed_analysis"
+    for epilogue in ("PAIR", "MAGNITUDE", "FILTERBANK", "GL_STEP"):
+        assert f"epilogue == {epilogue}" in tc
     assert "wgmma.mma_async" in tc and "fmaf" not in tc
 
 
