@@ -18,8 +18,10 @@ Phases:
     the product, K2 the filterbank of the power, K4 its four carries); the
     split-K magnitude (K6)
     against the plain version and against K1 at the CQT shape (84 real
-    wavelets of 16384 samples, B=32 and B=1) and at odd shapes, and K3 at the
-    flat CQT inverse's shape;
+    wavelets of 16384 samples, B=32 and B=1) and at odd shapes; the
+    synthesis (K3, on the tensor cores) at (b)'s, (e)'s and (h)'s inverse
+    shapes and hops 160, 441 and 3, twice for bit equality, and in fp32
+    storage against fp64 beside the plain fp32 version's error;
  4. the slice through the public entry points, with the launch counts set
     to 0 before each path and read after it:
     (a) the flagship SpectrogramClassifier answering 4 requests of
@@ -39,16 +41,24 @@ Phases:
         CQT2010v2). Each output is checked finite, of its shape, against the
         plain path on the card (Griffin-Lim at 2 iterations; at 32 by
         spectral convergence), and the STFT and the CQT against numpy on a
-        small input;
+        small input. Then training, one SGD step at 32 x 10 s in both
+        modes: (j) the classifier's ``train_step`` at the entry config and
+        at bench's 2048/512/128-mel, (k) the trainable STFT and (l) the
+        trainable CQT1992v2 under bench's losses, each with exact launches
+        (the pair, K5, once; no K1, K2, K6 or K3) and its loss and gradients
+        against the plain route; the input's gradient through a frozen STFT
+        at (b)'s shape (K3 as dx) and a trainable iSTFT's step at (d)'s
+        shape (K3 forward);
  5. CUDA-event times (median of 15 after warm-up, the host queued ahead of
     the device so that a short kernel's time is the device's) of each kernel,
     its plain version and one PyTorch library call computing the same
     function, K1 and K5 also on one clip (for
     K4 a composite: ``torch.stft`` and the elementwise update; for K6 two
     strided ``F.conv1d`` and ``torch.hypot``), K1 at K6's shapes, and K6
-    over a range of split counts, K2 also at (c)'s shape; paths (a)-(c)
-    and (e)-(i) also print one call's device time by kernel under
-    ``torch.profiler``;
+    over a range of split counts, K2 also at (c)'s shape, K3 also at (e)'s;
+    paths (a)-(c), (e)-(i) and the train steps also print one call's device
+    time by kernel under ``torch.profiler``, which fails if it misses a
+    kernel the call launched;
  6. a ``kernels`` JSON line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
@@ -87,6 +97,12 @@ GL_TOL = {"highest": 5e-4, "default": 3e-2}
 SC_DELTA, SC_CEILING = 0.05, 0.25
 MOM = 0.99 / 1.99  # Griffin_Lim's momentum 0.99 as the loop applies it
 REPS = 15
+# the device kernel each launch counter stands for, as the profiler names it
+PROFILE_NAMES = {"framed_magnitude": "framed_tc_kernel",
+                 "framed_filterbank": "framed_tc_kernel",
+                 "synthesis_ola": "synthesis_tc_kernel", "gl_step": "framed_tc_kernel",
+                 "framed_pair": "framed_tc_kernel",
+                 "framed_magnitude_kchunk": "kchunk_kernel"}
 
 
 def log(*a):
@@ -223,6 +239,22 @@ def fp64_errors(fk, x, wc, ws, fb, S, p_re, p_im, hop, mom):
                    err4(fk.gl_step_plain(x, wc, ws, S, p_re, p_im, hop, mom)))}
 
 
+def synthesis_fp64(sre, sim, kc, ks, hop):
+    """K3's function evaluated in fp64: frames then overlap-add."""
+    from nnaudio_tpu_torch.core.frame import frames_to_signal
+
+    frames = (torch.einsum("fj,bft->btj", kc.double(), sre.double())
+              - torch.einsum("fj,bft->btj", ks.double(), sim.double()))
+    return frames_to_signal(frames, hop, kc.shape[1] + hop * (sre.shape[-1] - 1))
+
+
+def grads_of(loss_fn, leaves):
+    """(loss, [d loss / d leaf]) on fresh leaves, the inputs left as they are."""
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    loss = loss_fn(*leaves)
+    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+
 def pair_grads(fn, x, wc, ws, hop, g_re, g_im):
     """Outputs and gradients of a pair function under one random cotangent."""
     leaves = [t.detach().clone().requires_grad_() for t in (x, wc, ws)]
@@ -315,16 +347,19 @@ def main() -> int:
                 log(f"[build] {src}: {kernel_label(line.split(chr(39))[1])}")
             elif "registers" in line or "spill" in line:
                 log(f"[build] {src}:   {line.strip()}")
-    # where the tensor-core kernel's spills run: the multiplying warpgroups
+    # where the tensor-core kernels' spills run: the multiplying warpgroups
     # hold the accumulators, the loading ones only addresses
-    spills = spill_report(build.library("framed_tc")._name, build._nvcc())
-    for func, by_role in (spills or {}).items():
-        if "framed_tc_kernel" in func:
-            log(f"[build] framed_tc.cu {kernel_label(func)}: spill instructions (LDL/STL) "
-                f"in the multiplying warpgroups {by_role['multiplying']}, in the "
-                f"loading ones {by_role['loading']}, before either {by_role['entry']}")
-    if spills is None:
-        log("[build] no cuobjdump beside nvcc: spill sites not read")
+    for lib_name, kernel in (("framed_tc", "framed_tc_kernel"),
+                             ("synthesis_ola", "synthesis_tc_kernel")):
+        spills = spill_report(build.library(lib_name)._name, build._nvcc())
+        for func, by_role in (spills or {}).items():
+            if kernel in func:
+                log(f"[build] {lib_name}.cu {kernel_label(func)}: spill instructions "
+                    f"(LDL/STL) in the multiplying warpgroups {by_role['multiplying']}, "
+                    f"in the loading ones {by_role['loading']}, before either "
+                    f"{by_role['entry']}")
+        if spills is None:
+            log("[build] no cuobjdump beside nvcc: spill sites not read")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -579,6 +614,57 @@ def main() -> int:
         del sre, sim, kc, ks, k3
     config.set_matmul_precision("highest")
 
+    # K3 on the tensor cores: against the plain version, twice for bit
+    # equality, and in fp32 storage against fp64 beside the plain fp32
+    # version: (label, B, F, T, N, hop); N None takes (h)'s inverse bank
+    cqt_h = CQT1992v2(sr=22050, fmin=55, n_bins=48, hop_length=128,
+                      output_format="Complex", verbose=False, device=dev)
+    k3_cases = [
+        ("slice (b)", 32, 1025, 431, 2048, 512),
+        ("(e) 1024/256", 32, 513, 862, 1024, 256),
+        ("hop 160", 4, 257, 300, 512, 160),
+        ("hop 441", 4, 1025, 150, 2048, 441),
+        ("hop 3", 2, 201, 1300, 400, 3),
+        ("(h) inverse", 4, 48, 1723, None, 128),
+    ]
+    for mode in ("highest", "default"):
+        config.set_matmul_precision(mode)
+        for label, b, f, t, n, hop in k3_cases:
+            if n is None:
+                kc, ks = cqt_h._dual_kernels("librosa", 1e-3)
+                f, n = kc.shape
+            else:
+                kc, ks = randn(f, n) / n, randn(f, n) / n
+            sre, sim = randn(b, f, t), randn(b, f, t)
+            k3 = fk.synthesis_ola(sre, sim, kc, ks, hop)
+            torch.cuda.synchronize()
+            same = torch.equal(k3, fk.synthesis_ola(sre, sim, kc, ks, hop))
+            plain = fk.synthesis_ola_plain(sre, sim, kc, ks, hop)
+            err = rel_err(k3, plain)
+            ok = err <= TOL[mode] and same
+            extra = ""
+            if mode == "highest":
+                ref = synthesis_fp64(sre, sim, kc, ks, hop)
+                e_kernel, e_plain = rel_err(k3, ref), rel_err(plain, ref)
+                sub = slice(0, 2)
+                e_split = rel_err(fk.synthesis_ola_3xtf32_plain(sre[sub], sim[sub], kc, ks, hop),
+                                  ref[sub])
+                ok = ok and e_kernel <= 4 * e_plain
+                extra = (f"; against fp64: kernel {e_kernel:.2e}, plain fp32 version "
+                         f"{e_plain:.2e} (limit 4x), plain 3xTF32 version (2 clips) "
+                         f"{e_split:.2e}")
+                if label == "slice (b)":
+                    max_abs["synthesis_ola"] = max(max_abs["synthesis_ola"],
+                                                   float((k3 - plain).abs().max()))
+                del ref
+            log(f"[check] {mode:8s} K3 {label:13s} B={b} F={f} T={t} N={n} hop={hop}: "
+                f"vs plain {err:.2e} (tol {TOL[mode]:g}), second launch "
+                f"{'bit-equal' if same else 'DIFFERS'}{extra} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"K3 disagrees with its plain version, fp64 or itself: {mode} {label}")
+            del sre, sim, kc, ks, k3, plain
+    config.set_matmul_precision("highest")
+
     # ------------------------------------------------- 4. the serving slice --
     # a numpy rfft oracle at a small input first
     xs = np.random.RandomState(0).randn(1, 16000).astype(np.float32)
@@ -622,8 +708,21 @@ def main() -> int:
 
     def log_profile(key, fn):
         """One call of a path under ``torch.profiler``: wall time, device busy
-        and idle share, and the six kernels that took most of it."""
-        wall, kernels = profile_path(fn)
+        and idle share, and the six kernels that took most of it. Fails if a
+        kernel the call launched (counted in ``LAUNCHES``) is missing from
+        the profile twice running: a trace that lost a kernel's events would
+        misstate where the time goes."""
+        for attempt in (1, 2):
+            fk.reset_launches()
+            wall, kernels = profile_path(fn)
+            missing = [k for k, v in fk.LAUNCHES.items()
+                       if v and not any(PROFILE_NAMES[k] in name for name in kernels)]
+            if not missing:
+                break
+            log(f"[profile] ({key}) attempt {attempt}: launched but not in the "
+                f"profile: {missing}")
+        if missing:
+            fail(f"({key}): the profile misses kernels it launched: {missing}")
         busy = sum(k_ms for k_ms, _ in kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
         log(f"[profile] ({key}) one call under torch.profiler: wall {wall:.2f} ms, "
@@ -819,8 +918,6 @@ def main() -> int:
               (batch, 84, 431, 2), expect={"framed_pair": 1})
         # Complex -> .inverse where the hop respects the shortest atom
         xt = inband_tones(batch, sr_b * secs, sr_b, 0, dev)
-        cqt_h = CQT1992v2(sr=sr_b, fmin=55, n_bins=48, hop_length=128,
-                          output_format="Complex", verbose=False, device=dev)
         (rec,), dt = drive(
             "(h) CQT1992v2 Complex -> inverse, 48 bins, hop 128",
             lambda: cqt_h.inverse(cqt_h(xt), length=xt.shape[1]),
@@ -862,6 +959,123 @@ def main() -> int:
         f"{batch * secs / (ms_v / 1e3):.1f} audio-s/s; VQT(gamma=0) == CQT2010v2 "
         "bit for bit")
     del out_c, out_v, xg, x1
+
+    # (j)-(l) one SGD step at 32 x 10 s in both modes: (j) the classifier's
+    # train_step at the entry config and at bench's 2048/512/128-mel (its
+    # labels), (k) the trainable STFT Magnitude and (l) the trainable
+    # CQT1992v2 under bench's loss (bench.py:297-386). Under grad the
+    # forward takes the pair (K5) once and no K1, K2 or K6; no waveform needs
+    # a gradient, so no K3. The loss and every gradient are held against the
+    # plain route on the card, the step is timed with CUDA events.
+    from nnaudio_tpu_torch.models import train_step
+
+    def sgd_step(loss_fn, params, lr=1e-3):
+        """The SGD step of train_step for a loss of a params dict."""
+        loss, grads = grads_of(lambda *v: loss_fn(dict(zip(params, v))),
+                               list(params.values()))
+        return loss, {k: v.detach() - lr * g for (k, v), g in zip(params.items(), grads)}
+
+    def train_path(label, key, loss_fn, params, step, expect, audio_s):
+        """Count one step, hold its loss and gradients against the plain
+        route, time it; returns the step's ms."""
+        (loss,), _, counts = counted(label, lambda: step()[0], (), expect)
+        names = list(params)
+
+        def loss_and_grads():
+            return grads_of(lambda *v: loss_fn(dict(zip(names, v))),
+                            list(params.values()))
+        l_k, g_k = loss_and_grads()
+        l_p, g_p = plain_path(loss_and_grads)
+        errs = {"loss": rel_err(l_k, l_p),
+                **{f"d{k}": rel_err(a, b) for k, a, b in zip(names, g_k, g_p)}}
+        tol = TOL[config.get_config().matmul_precision]
+        finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+        ms = cuda_ms(step, reps=10, warmup=2)
+        log(f"[train] {label}: launches {counts}; vs plain route "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" (tol {tol:g}); {ms:.3f} ms per step (CUDA events, median of 10) = "
+            f"{audio_s / (ms / 1e3):.1f} audio-s/s")
+        if max(errs.values()) > tol or not finite:
+            fail(f"{label}: the kernel route's loss or gradients disagree with the plain route")
+        results[f"{key}_audio_s_per_s"] = audio_s / (ms / 1e3)
+        return ms
+
+    xj = {16000: randn(batch, 16000 * secs), sr_b: randn(batch, sr_b * secs)}
+    labels = torch.as_tensor(np.random.RandomState(4).randint(0, 10, size=(batch,)),
+                             device=dev)
+    y_true = torch.as_tensor(np.random.RandomState(1).randn(batch, 8).astype(np.float32),
+                             device=dev)
+    one_pair = {"framed_pair": 1}
+    stt = STFT(n_fft=2048, hop_length=512, output_format="Magnitude", trainable=True,
+               verbose=False, device=dev)
+    qt = CQT1992v2(sr=sr_b, hop_length=512, n_bins=84, bins_per_octave=12,
+                   trainable=True, verbose=False, device=dev)
+
+    def stft_loss(p):
+        spec = stt._forward(p, xj[sr_b], output_format="Magnitude")
+        return ((spec.mean(dim=-1) @ p["head"] - y_true) ** 2).mean()
+
+    def cqt_loss(p):
+        spec = qt.apply(p, xj[sr_b], output_format="Magnitude",
+                        normalization_type="librosa")
+        return ((spec.mean(dim=-1) @ p["head"] - y_true) ** 2).mean()
+
+    for mode in ("highest", "default"):
+        config.set_matmul_precision(mode)
+        for cfg, sr, n_fft, hop, n_mels in (("entry 1024/256/64", 16000, 1024, 256, 64),
+                                            ("bench 2048/512/128", sr_b, 2048, 512, 128)):
+            clf = SpectrogramClassifier(n_classes=10, sr=sr, n_fft=n_fft, hop_length=hop,
+                                        n_mels=n_mels, seed=0, device=dev)
+            params = clf.init_params
+            x_clf = xj[sr]
+            key = f"j_{cfg.split()[0]}_{mode}"
+            train_path(f"(j) classifier train_step {cfg} {mode}", key,
+                       lambda p, c=clf, x_=x_clf: c.loss_fn(p, x_, labels), params,
+                       lambda c=clf, p_=params, x_=x_clf: train_step(c, p_, x_, labels),
+                       one_pair, batch * secs)
+            if mode == "highest":
+                log_profile(f"j, {cfg}", lambda c=clf, p_=params, x_=x_clf:
+                            train_step(c, p_, x_, labels))
+            del clf, params
+        params_k = {"wsin": stt.wsin, "wcos": stt.wcos,
+                    "head": torch.full((1025, 8), 1e-3, device=dev)}
+        train_path(f"(k) trainable STFT 2048/512 step {mode}", f"k_{mode}", stft_loss,
+                   params_k, lambda: sgd_step(stft_loss, params_k), one_pair, batch * secs)
+        params_l = {"cqt_kernels_real": qt.cqt_kernels_real,
+                    "cqt_kernels_imag": qt.cqt_kernels_imag,
+                    "head": torch.full((84, 8), 1e-3, device=dev)}
+        train_path(f"(l) trainable CQT1992v2 step {mode}", f"l_{mode}", cqt_loss,
+                   params_l, lambda: sgd_step(cqt_loss, params_l), one_pair, batch * secs)
+        if mode == "highest":
+            log_profile("k", lambda: sgd_step(stft_loss, params_k))
+            log_profile("l", lambda: sgd_step(cqt_loss, params_l))
+    config.set_matmul_precision("highest")
+
+    # the input's gradient through a frozen STFT Magnitude at (b)'s shape:
+    # K5 forward, K3 as dx; and a trainable iSTFT's step at (d)'s shape: K3
+    # forward, the kernels' dW as matmuls (the spectrum needs no gradient)
+    x_in = xj[sr_b]
+    with torch.no_grad():
+        g_b = torch.randn(st(x_in).shape, generator=gen, device=dev)
+    train_path("(b) input gradient, frozen STFT Magnitude", "b_input_grad",
+               lambda p: (st(p["x"]) * g_b).sum(), {"x": x_in},
+               lambda: grads_of(lambda x_: (st(x_) * g_b).sum(), [x_in]),
+               {"framed_pair": 1, "synthesis_ola": 1}, batch * secs)
+    ist_t = iSTFT(n_fft=2048, hop_length=512, trainable_kernels=True,
+                  trainable_window=True, verbose=False, device=dev)
+    with torch.no_grad():
+        X_d = stc(x_in)
+    # a seeded target: against the input itself, which the layer
+    # reconstructs, the loss and its gradients are rounding noise
+    target = randn(*x_in.shape)
+
+    def istft_loss(p):
+        rec = ist_t.apply(p, X_d, onesided=True, length=x_in.shape[1])
+        return ((rec - target) ** 2).mean()
+    params_i = dict(ist_t.trainable_params())
+    train_path("(d) trainable iSTFT 2048/512 step", "d_train", istft_loss, params_i,
+               lambda: sgd_step(istft_loss, params_i), {"synthesis_ola": 1}, batch * secs)
+    del X_d, g_b, xj, target
 
     for k, v in launches.items():
         if v <= 0:
@@ -924,23 +1138,29 @@ def main() -> int:
                 flops=flops + 2 * b * t * f * 128,
                 bytes=esz * (b * length + 2 * f * n + 128 * f) + 4 * b * 128 * t,
                 shape=f"B={b} L={length} n_fft={n} hop=512 F={f} T={t} M=128")
-            # K3 at (d): synthesis 2048/512, B=32, T=431, F=1025
-            sre, sim = randn(batch, f, t), randn(batch, f, t)
-            kc, ks = wc / n, ws / n
-            out_len = n + 512 * (t - 1)
-
-            def fold_lib():
+            # K3 at (d): synthesis 2048/512, B=32, T=431, F=1025; and at (e):
+            # mel -> audio's 1024/256, T=862, F=513
+            def fold_lib(sre, sim, kc, ks, hop):
                 fr = (torch.einsum("fj,bft->bjt", kc, sre)
                       - torch.einsum("fj,bft->bjt", ks, sim))
-                return F.fold(fr, output_size=(1, out_len), kernel_size=(1, n),
-                              stride=(1, 512))
-            rows["synthesis_ola"] = dict(
-                ms=kernel_ms(lambda: fk.synthesis_ola(sre, sim, kc, ks, 512)),
-                plain_ms=kernel_ms(lambda: fk.synthesis_ola_plain(sre, sim, kc, ks, 512)),
-                library_ms=kernel_ms(fold_lib),
-                flops=4 * batch * t * f * n,
-                bytes=esz * (2 * batch * f * t + 2 * f * n) + 4 * batch * out_len,
-                shape=f"B={batch} F={f} T={t} n_fft={n} hop=512")
+                out_len = kc.shape[1] + hop * (sre.shape[-1] - 1)
+                return F.fold(fr, output_size=(1, out_len), kernel_size=(1, kc.shape[1]),
+                              stride=(1, hop))
+            for key, (kc, ks), hop, t3 in (("synthesis_ola", (wc / n, ws / n), 512, t),
+                                           ("synthesis_ola (e)", (wc2 / n2, ws2 / n2), 256, 862)):
+                f3, n3 = kc.shape
+                sre, sim = randn(batch, f3, t3), randn(batch, f3, t3)
+                args = (sre, sim, kc, ks, hop)
+                rows[key] = dict(
+                    ms=kernel_ms(lambda: fk.synthesis_ola(*args)),
+                    plain_ms=kernel_ms(lambda: fk.synthesis_ola_plain(*args)),
+                    library_ms=kernel_ms(lambda: fold_lib(*args)),
+                    library="unfold-matmul + F.fold",
+                    flops=4 * batch * t3 * f3 * n3,
+                    bytes=esz * (2 * batch * f3 * t3 + 2 * f3 * n3)
+                    + 4 * batch * (n3 + hop * (t3 - 1)),
+                    shape=f"B={batch} F={f3} T={t3} n_fft={n3} hop={hop}")
+                del sre, sim
             # K5 at (b)'s shape (the fp32 Griffin-Lim loop's analysis, (f))
             rows["framed_pair"] = dict(
                 ms=kernel_ms(lambda: fk.framed_pair(x, wc, ws, 512)),
@@ -1059,7 +1279,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -17,7 +17,8 @@ class SpectrogramClassifier(nn.Module):
     The state is flat, with the JAX model's ``init_params`` keys
     (``wsin``, ``wcos``, ``mel_basis``, ``head_w``, ``head_b``). ``forward``
     and ``loss_fn`` take a params dict like the JAX model's; ``None`` means
-    the module's own tensors. ``device=None`` means CUDA; pass
+    the module's own tensors; :func:`train_step` differentiates through
+    them. ``device=None`` means CUDA; pass
     ``device="cpu"`` for the CPU.
     """
 
@@ -66,3 +67,18 @@ class SpectrogramClassifier(nn.Module):
         logits = self.forward(params, x)
         labels = torch.as_tensor(labels, device=logits.device).long()
         return F.cross_entropy(logits, labels)
+
+
+def train_step(model: SpectrogramClassifier, params, x, labels, lr=1e-3):
+    """One SGD step, the JAX package's ``train_step``: returns ``(loss,
+    new_params)`` with ``new_params[k] = params[k] - lr * dloss/dparams[k]``.
+    A pure function of ``params``: the gradients go to fresh leaves, so no
+    tensor of the model or of ``params`` is changed and no ``.grad`` is
+    written."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with torch.enable_grad():
+        loss = model.loss_fn(leaves, x, labels)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    new_params = {k: (v - lr * g).detach()
+                  for (k, v), g in zip(leaves.items(), grads)}
+    return loss.detach(), new_params

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, bound with ``ctypes``. The libraries go to
-``nnaudio_tpu_torch/_build/<hash>/``, keyed on the sources and flags, and are
+``nnaudio_tpu_torch/_build/<hash>/``, keyed on the sources, the headers they
+share (``csrc/*.cuh``) and the flags, and are
 built at first use: all sources at once, one ``nvcc`` each, in parallel.
 Nothing here runs at import time.
 """
@@ -48,7 +49,7 @@ def _sources() -> list[Path]:
 
 def _build_dir(sources: list[Path]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

@@ -14,6 +14,12 @@ in which case it takes the plain version on every device:
 - ``synthesis_ola``: K3;
 - ``gl_step``: K4, one Griffin-Lim analysis step.
 
+Under autograd (grad enabled and an operand that requires grad) the
+magnitude, power and filterbank wrappers take the pair (K5) and compute their
+epilogue in PyTorch, as the JAX package's differentiated forwards do; the
+route is decided in :mod:`.framed_kernels`, so no caller records a K1, K2 or
+K6 forward.
+
 K1, K2, K4 and K5 are one tensor-core kernel (``csrc/framed_tc.cu``) with
 four epilogues; K3 and K6 have sources of their own.
 """

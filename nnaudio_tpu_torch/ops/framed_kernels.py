@@ -20,7 +20,9 @@ epilogues. In fp32 storage it takes three TF32 products of operands split as
 :func:`framed_pair_3xtf32_plain`, :func:`framed_filterbank_3xtf32_plain` and
 :func:`gl_step_3xtf32_plain` repeat that arithmetic in plain PyTorch. In bf16
 storage it takes one bf16 product (K2 also rounds the power to bf16 for its
-projection). K3 and K6 run fp32 FMA on the CUDA cores in both storage types.
+projection). K3 runs on the tensor cores too, with the same split
+(:func:`synthesis_ola_3xtf32_plain`). K6 runs fp32 FMA on the CUDA cores in
+both storage types.
 
 A wrapper given a CPU tensor computes its plain version; given a CUDA tensor
 it launches its kernel or raises. It checks device, dtype and shape, makes
@@ -29,12 +31,18 @@ the operands contiguous in the storage type of the precision mode (bf16 in
 launches on the current stream, raises on a nonzero ``cudaError_t``, and
 adds one to its entry of :data:`LAUNCHES`.
 
-The kernel wrappers are ``torch.autograd.Function``s. ``framed_pair`` has
-the JAX package's backward (``dispatch._bwd``): dW as a matmul over chunks of
-frames, dx through the K3 kernel. The other backwards raise: the gradients
-of K1-K3 and K6 come with the training slice, and the Griffin-Lim step has
-none.
-On the CPU the plain versions differentiate through autograd.
+A differentiated call (grad enabled and an operand that requires grad)
+takes the JAX package's route for a differentiated forward
+(``dispatch.py``: ``_pow_fwd``, ``_fb_fwd``, ``_mag_fwd``): the magnitude,
+power and filterbank wrappers skip K1, K2 and K6 and take the pair from K5,
+then compute their epilogue in PyTorch, so autograd keeps the pair as the
+residual. ``framed_pair`` has the JAX package's backward (``_bwd``): dW as a
+matmul over chunks of frames, dx through K3. ``synthesis_ola`` has
+``_ola_bwd``'s: the spectra's gradient is the pair of the cotangent signal
+(K5), the kernels' a matmul over chunks of its frames. The magnitude's
+backward divides by ``where(mag > 0, mag, 1)`` as ``_mag_bwd`` does, on every
+route. Only the Griffin-Lim step's backward raises: the JAX loop carries no
+gradient. On the CPU the plain versions differentiate through autograd.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ..config import matmul_numerics, round_to_storage, storage_dtype
 from ..core.apply import apply_basis, project
@@ -96,13 +105,41 @@ def framed_pair_3xtf32_plain(x, wcos, wsin, hop):
     return product(wcos), product(wsin)
 
 
+class _SafeMagnitude(torch.autograd.Function):
+    """``sqrt(re^2 + im^2 + eps)`` with the JAX package's backward
+    (``_mag_bwd``): ``g / where(mag > 0, mag, 1)`` times ``re`` and ``im``,
+    so a silent frame gets a zero gradient where ``torch.sqrt``'s own
+    backward gives ``inf * 0``."""
+
+    @staticmethod
+    def forward(ctx, re, im, eps):
+        power = re * re + im * im
+        if eps:
+            power = power + eps
+        mag = torch.sqrt(power)
+        ctx.save_for_backward(re, im, mag)
+        return mag
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        re, im, mag = ctx.saved_tensors
+        scale = g / torch.where(mag > 0, mag, torch.ones_like(mag))
+        return scale * re, scale * im, None
+
+
+def pair_magnitude(re, im, eps=0.0, square=False):
+    """The magnitude epilogue on a pair: ``sqrt(re^2 + im^2 + eps)``, or the
+    power ``re^2 + im^2 + eps`` when ``square``."""
+    if not square:
+        return _SafeMagnitude.apply(re, im, eps)
+    power = re * re + im * im
+    return power + eps if eps else power
+
+
 def framed_magnitude_plain(x, wcos, wsin, hop, eps=0.0, square=False):
     """sqrt(re^2 + im^2 + eps), or the power itself when ``square``."""
-    re, im = framed_pair_plain(x, wcos, wsin, hop)
-    power = re * re + im * im
-    if eps:
-        power = power + eps
-    return power if square else torch.sqrt(power)
+    return pair_magnitude(*framed_pair_plain(x, wcos, wsin, hop), eps, square)
 
 
 def framed_filterbank_plain(x, wcos, wsin, fb, hop, eps=0.0):
@@ -157,6 +194,43 @@ def synthesis_ola_plain(spec_re, spec_im, kc, ks, hop):
     return frames_to_signal(frames, hop, length)
 
 
+#: bins of one K chunk of K3's tensor-core loop in fp32 storage (128 bytes)
+#: and in bf16; the wrapper pads the transposed kernels' rows to a multiple
+SYNTH_BK = {torch.float32: 32, torch.bfloat16: 64}
+
+
+def synthesis_ola_3xtf32_plain(spec_re, spec_im, kc, ks, hop):
+    """K3 as the tensor-core kernel computes it in fp32 storage. In the row
+    view of the signal, ``y[r*hop + p] = sum_c sum_f kc[f, c*hop + p] *
+    Re[f, r - c] - ks[f, c*hop + p] * Im[f, r - c]``; the K loop runs over
+    the chunks c, then the :data:`SYNTH_BK`-bin chunks of F, then Re and
+    -Im. Each step splits both operands by :func:`tf32_split`, sums
+    ``lo*hi + hi*lo``, then ``hi*hi``, in fp32 from zero, and adds that to
+    the running sum (``lo*lo`` is dropped)."""
+    b, f, t = spec_re.shape
+    n = kc.shape[1]
+    bk = SYNTH_BK[torch.float32]
+    n_chunks = _ceil_div(n, hop)
+    pad_f = -f % bk
+
+    def kernel(k):  # (Fp, n_chunks, hop), zeros past F and past N
+        return F.pad(k.float(), (0, n_chunks * hop - n, 0, pad_f)).reshape(
+            f + pad_f, n_chunks, hop)
+    steps = [(*tf32_split(kernel(k)), *tf32_split(F.pad(s.float(), (0, 0, 0, pad_f))))
+             for k, s in ((kc, spec_re), (ks, -spec_im))]
+    rows = torch.zeros((b, t + n_chunks - 1, hop), dtype=torch.float32,
+                       device=spec_re.device)
+    for c in range(n_chunks):
+        for f0 in range(0, f + pad_f, bk):
+            fs = slice(f0, f0 + bk)
+            for w_hi, w_lo, s_hi, s_lo in steps:
+                small = (torch.einsum("fp,bft->btp", w_lo[fs, c], s_hi[:, fs])
+                         + torch.einsum("fp,bft->btp", w_hi[fs, c], s_lo[:, fs]))
+                rows[:, c:c + t] += small + torch.einsum(
+                    "fp,bft->btp", w_hi[fs, c], s_hi[:, fs])
+    return rows.reshape(b, -1)[:, :n + hop * (t - 1)]
+
+
 def gl_update(re, im_raw, S, p_re, p_im, mom):
     """The Griffin-Lim carry update after the analysis pair: ``r = (re,
     -im_raw)``, ``n = r - mom * p``, ``c = S * n * rsqrt(|n|^2 + 1e-32)``.
@@ -187,34 +261,62 @@ def gl_step_3xtf32_plain(x, wcos, wsin, S, p_re, p_im, hop, mom):
 DW_CHUNK_ELEMS = 1 << 26
 
 
+def _frames_dw(x, g_re, g_im, n, hop):
+    """``(sum_bt g_re[b,f,t] x[b, t*hop + k], sum_bt g_im[...] x[...])``, each
+    (F, n): the framed signal's product with two (B, F, T) cotangents, over
+    chunks of frames, so at most :data:`DW_CHUNK_ELEMS` frame samples exist
+    at once."""
+    b, f, t = g_re.shape
+    step = max(1, DW_CHUNK_ELEMS // (b * n))
+    d_re = g_re.new_zeros((f, n), dtype=torch.float32)
+    d_im = g_im.new_zeros((f, n), dtype=torch.float32)
+    with matmul_numerics():
+        for t0 in range(0, t, step):
+            t1 = min(t, t0 + step)
+            frames = round_to_storage(
+                frame_signal(x[:, t0 * hop:(t1 - 1) * hop + n], n, hop))
+            d_re += torch.einsum("bft,btn->fn",
+                                 round_to_storage(g_re[..., t0:t1].float()), frames)
+            d_im += torch.einsum("bft,btn->fn",
+                                 round_to_storage(g_im[..., t0:t1].float()), frames)
+    return d_re, d_im
+
+
 def framed_pair_backward(x, wcos, wsin, g_re, g_im, hop,
                          needs=(True, True, True)):
     """Gradients of :func:`framed_pair` w.r.t. ``(x, wcos, wsin)`` (each None
     where ``needs`` says so), as the JAX package's ``_bwd``: dx is the
     synthesis of the cotangent spectra on the same bases (the K3 kernel for
-    CUDA tensors), dW a matmul over chunks of frames, so at most
-    :data:`DW_CHUNK_ELEMS` frame samples exist at once."""
+    CUDA tensors), dW a matmul over chunks of frames (:func:`_frames_dw`).
+    No dx, no K3: a train step whose waveform needs no gradient launches
+    none."""
     d_x = d_wc = d_ws = None
     if needs[0]:
         d_x = synthesis_ola(g_re, -g_im, wcos, wsin, hop)
         # the last frame ends at or before the end of the signal
         d_x = F.pad(d_x, (0, x.shape[-1] - d_x.shape[-1]))
     if needs[1] or needs[2]:
-        b, f, t = g_re.shape
-        n = wcos.shape[-1]
-        step = max(1, DW_CHUNK_ELEMS // (b * n))
-        d_wc = g_re.new_zeros((f, n))
-        d_ws = g_im.new_zeros((f, n))
-        with matmul_numerics():
-            for t0 in range(0, t, step):
-                t1 = min(t, t0 + step)
-                frames = round_to_storage(
-                    frame_signal(x[:, t0 * hop:(t1 - 1) * hop + n], n, hop))
-                d_wc += torch.einsum("bft,btn->fn",
-                                     round_to_storage(g_re[..., t0:t1]), frames)
-                d_ws += torch.einsum("bft,btn->fn",
-                                     round_to_storage(g_im[..., t0:t1]), frames)
+        d_wc, d_ws = _frames_dw(x, g_re, g_im, wcos.shape[-1], hop)
     return d_x, d_wc, d_ws
+
+
+def synthesis_ola_backward(spec_re, spec_im, kc, ks, g, hop,
+                           needs=(True, True, True, True)):
+    """Gradients of :func:`synthesis_ola` w.r.t. ``(spec_re, spec_im, kc,
+    ks)`` for the cotangent signal ``g`` (each None where ``needs`` says so),
+    as the JAX package's ``_ola_bwd``: the adjoint of synthesis + overlap-add
+    is analysis, so the spectra's gradient is the pair of ``g`` on the same
+    kernels (the K5 kernel for CUDA tensors; ``g`` has ``N + hop*(T-1)``
+    samples, exactly T frames), the kernels' a matmul over chunks of its
+    frames (:func:`_frames_dw`)."""
+    d_re = d_im = d_kc = d_ks = None
+    if needs[0] or needs[1]:
+        d_re, d_im_raw = framed_pair(g, kc, ks, hop)
+        d_im = -d_im_raw
+    if needs[2] or needs[3]:
+        d_kc, d_ks = _frames_dw(g, spec_re, spec_im, kc.shape[-1], hop)
+        d_ks = -d_ks
+    return d_re, d_im, d_kc, d_ks
 
 
 # ------------------------------------------------------------------ launch --
@@ -230,8 +332,7 @@ _SIGNATURES = {
         [_VOID] * 6 + [_INT] * 7 + [ctypes.c_float, _INT, _VOID]),
     "nnaudio_synthesis_ola": (
         "synthesis_ola",
-        [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
-         _VOID]),
+        [_VOID] * 5 + [_INT] * 8 + [_VOID]),
     "nnaudio_framed_pair": (
         "framed_tc",
         [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
@@ -295,13 +396,6 @@ def _run(name: str, *args) -> None:
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
-
-
-def _no_grad_yet(name):
-    raise NotImplementedError(
-        f"the gradient of the {name} CUDA kernel comes with the training "
-        "slice of the port; run on the CPU or with the kernels off "
-        "(config.set_use_kernels(False)) to differentiate")
 
 
 def _analysis_operands(x, wcos, wsin, hop):
@@ -457,53 +551,43 @@ def _launch_synthesis(spec_re, spec_im, kc, ks, hop):
         raise ValueError(f"hop must be >= 1, got {hop}")
     b, f, t = sre.shape
     n = kcs.shape[1]
+    bf16 = sre.dtype == torch.bfloat16
+    # the kernels transposed to (N, Fp), Fp = F rounded up to a K chunk, zeros
+    # past F: the K-major A operand that TF32 products need, with rows that
+    # TMA can read (16-byte aligned)
+    fp = _ceil_div(f, SYNTH_BK[sre.dtype]) * SYNTH_BK[sre.dtype]
+    kct = torch.zeros((n, fp), dtype=sre.dtype, device=dev)
+    kst = torch.zeros_like(kct)
+    kct[:, :f] = kcs.t()
+    kst[:, :f] = kss.t()
+    # the kernel copies the spectra in 16-byte pieces from 16-byte aligned
+    # rows: pad each row with zeros to a multiple of a piece
+    per16 = 16 // sre.element_size()
+    tp = _ceil_div(t, per16) * per16
+    if tp != t:
+        sre, sim = (F.pad(a, (0, tp - t)) for a in (sre, sim))
+    elif sre.data_ptr() % 16 or sim.data_ptr() % 16:
+        sre, sim = sre.clone(), sim.clone()
     out = torch.empty((b, n + hop * (t - 1)), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _run("nnaudio_synthesis_ola", sre.data_ptr(), sim.data_ptr(),
-             kcs.data_ptr(), kss.data_ptr(), out.data_ptr(), b, f, t, n, hop,
-             int(sre.dtype == torch.bfloat16), _stream())
+             kct.data_ptr(), kst.data_ptr(), out.data_ptr(), b, f, t, tp, n,
+             hop, fp, int(bf16), _stream())
     LAUNCHES["synthesis_ola"] += 1
     return out
-
-
-class _Magnitude(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, wcos, wsin, hop, eps, square):
-        return _launch_magnitude(x, wcos, wsin, hop, eps, square)
-
-    @staticmethod
-    def backward(ctx, g):
-        _no_grad_yet("framed_magnitude")
-
-
-class _MagnitudeKchunk(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, wcos, wsin, hop, eps, square, splits):
-        return _launch_magnitude_kchunk(x, wcos, wsin, hop, eps, square, splits)
-
-    @staticmethod
-    def backward(ctx, g):
-        _no_grad_yet("framed_magnitude_kchunk")
-
-
-class _Filterbank(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, wcos, wsin, fb, hop, eps):
-        return _launch_filterbank(x, wcos, wsin, fb, hop, eps)
-
-    @staticmethod
-    def backward(ctx, g):
-        _no_grad_yet("framed_filterbank")
 
 
 class _SynthesisOLA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spec_re, spec_im, kc, ks, hop):
+        ctx.save_for_backward(spec_re, spec_im, kc, ks)
+        ctx.hop = hop
         return _launch_synthesis(spec_re, spec_im, kc, ks, hop)
 
     @staticmethod
     def backward(ctx, g):
-        _no_grad_yet("synthesis_ola")
+        return (*synthesis_ola_backward(*ctx.saved_tensors, g, ctx.hop,
+                                        ctx.needs_input_grad[:4]), None)
 
 
 class _Pair(torch.autograd.Function):
@@ -533,11 +617,26 @@ class _GLStep(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------- wrappers --
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper launches its kernel for ``t``: for any tensor off
+    the CPU (the kernel's checks reject one that is not on CUDA)."""
+    return t.device.type != "cpu"
+
+
+def _differentiated(*operands) -> bool:
+    """Whether autograd records this call: grad is enabled and an operand
+    requires grad (the JAX package's differentiated forward)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in operands)
+
+
 def framed_magnitude(x, wcos, wsin, hop, eps=0.0, square=False):
-    """K1: |STFT| (or |STFT|^2 when ``square``) -> (B, F, T) float32."""
-    if x.device.type == "cpu":
+    """K1: |STFT| (or |STFT|^2 when ``square``) -> (B, F, T) float32. A
+    differentiated call takes the pair (K5) and the epilogue in PyTorch."""
+    if not _on_card(x):
         return framed_magnitude_plain(x, wcos, wsin, hop, eps=eps, square=square)
-    return _Magnitude.apply(x, wcos, wsin, hop, eps, square)
+    if _differentiated(x, wcos, wsin):
+        return pair_magnitude(*framed_pair(x, wcos, wsin, hop), eps, square)
+    return _launch_magnitude(x, wcos, wsin, hop, eps, square)
 
 
 def framed_magnitude_kchunk(x, wcos, wsin, hop, eps=0.0, square=False,
@@ -545,29 +644,37 @@ def framed_magnitude_kchunk(x, wcos, wsin, hop, eps=0.0, square=False,
     """K6: the function of K1 for a bank of at most 128 bins and a long
     contraction, split over K -> (B, F, T) float32. ``splits`` overrides the
     planned split count (:func:`kchunk_plan`); the result does not depend on
-    it beyond fp32 summation order."""
-    if x.device.type == "cpu":
+    it beyond fp32 summation order. A differentiated call takes the pair
+    (K5), as :func:`framed_magnitude` does."""
+    if not _on_card(x):
         return framed_magnitude_plain(x, wcos, wsin, hop, eps=eps, square=square)
-    return _MagnitudeKchunk.apply(x, wcos, wsin, hop, eps, square, splits)
+    if _differentiated(x, wcos, wsin):
+        return pair_magnitude(*framed_pair(x, wcos, wsin, hop), eps, square)
+    return _launch_magnitude_kchunk(x, wcos, wsin, hop, eps, square, splits)
 
 
 def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0):
-    """K2: fb @ (|STFT|^2 + eps) -> (B, M, T) float32."""
-    if x.device.type == "cpu":
+    """K2: fb @ (|STFT|^2 + eps) -> (B, M, T) float32. A differentiated call
+    takes the pair (K5), then the power and the projection in PyTorch, whose
+    autograd gives the JAX package's ``_fb_bwd`` (``d_fb`` included)."""
+    if not _on_card(x):
         return framed_filterbank_plain(x, wcos, wsin, fb, hop, eps=eps)
-    return _Filterbank.apply(x, wcos, wsin, fb, hop, eps)
+    if _differentiated(x, wcos, wsin, fb):
+        return project(fb, pair_magnitude(*framed_pair(x, wcos, wsin, hop),
+                                          eps, square=True))
+    return _launch_filterbank(x, wcos, wsin, fb, hop, eps)
 
 
 def synthesis_ola(spec_re, spec_im, kc, ks, hop):
     """K3: OLA(kc^T Re - ks^T Im) -> (B, N + hop*(T-1)) float32."""
-    if spec_re.device.type == "cpu":
+    if not _on_card(spec_re):
         return synthesis_ola_plain(spec_re, spec_im, kc, ks, hop)
     return _SynthesisOLA.apply(spec_re, spec_im, kc, ks, hop)
 
 
 def framed_pair(x, wcos, wsin, hop):
     """K5: the STFT pair ``(re, im_raw)``, each (B, F, T) float32."""
-    if x.device.type == "cpu":
+    if not _on_card(x):
         return framed_pair_plain(x, wcos, wsin, hop)
     return _Pair.apply(x, wcos, wsin, hop)
 
@@ -575,6 +682,6 @@ def framed_pair(x, wcos, wsin, hop):
 def gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom):
     """K4: one Griffin-Lim analysis step -> ``(c_re, c_im, r_re, r_im)``,
     each (B, F, T) in the carry type of ``p_re`` (float32 or bfloat16)."""
-    if x.device.type == "cpu":
+    if not _on_card(x):
         return gl_step_plain(x, wcos, wsin, S, p_re, p_im, hop, mom)
     return _GLStep.apply(x, wcos, wsin, S, p_re, p_im, hop, mom)

@@ -9,9 +9,10 @@ import pytest
 import torch
 
 from chip_smoke import (CARRY_TOL, MAG_TOL, MOM, TOL, fp64_errors, gl_step_errors,
-                        pair_grads, rel_err)
+                        grads_of, pair_grads, rel_err, synthesis_fp64)
 from nnaudio_tpu_torch import config
 from nnaudio_tpu_torch.core.frame import num_frames
+from nnaudio_tpu_torch.ops import dispatch as td
 from nnaudio_tpu_torch.ops import framed_kernels as fk
 
 pytestmark = pytest.mark.cuda
@@ -236,10 +237,85 @@ def test_kchunk_rejects_wide_banks(cuda):
         fk.framed_magnitude_kchunk(x, w, w, 64)
 
 
-@pytest.mark.parametrize("wrapper", [fk.framed_magnitude, fk.framed_magnitude_kchunk])
-def test_kernel_backward_raises(cuda, wrapper):
-    x = torch.randn(1, 8192, device=cuda)
-    w = torch.randn(65, 4096, device=cuda, requires_grad=True)
-    out = wrapper(x, w, w, 32)
-    with pytest.raises(NotImplementedError, match="training slice"):
+@pytest.mark.parametrize("b,f,t,n,hop", [
+    (2, 1025, 40, 2048, 512), (2, 1025, 30, 2048, 441), (2, 513, 50, 1024, 256),
+    (2, 257, 60, 512, 128), (2, 201, 90, 400, 3),
+    (2, 84, 60, 16384, 128),  # the flat CQT inverse's bank
+])
+def test_synthesis_on_the_tensor_cores_matches_both_plain_versions(cuda, mode, b, f, t, n, hop):
+    """K3 against the plain version and, in fp32 storage, its 3xTF32 twin
+    and fp64 (within 4x the plain fp32 version's error); a second launch
+    bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    sre = torch.randn(b, f, t, generator=g, device=cuda)
+    sim = torch.randn(b, f, t, generator=g, device=cuda)
+    kc = torch.randn(f, n, generator=g, device=cuda) / n
+    ks = torch.randn(f, n, generator=g, device=cuda) / n
+    before = fk.LAUNCHES["synthesis_ola"]
+    got = fk.synthesis_ola(sre, sim, kc, ks, hop)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["synthesis_ola"] == before + 1
+    assert got.shape == (b, n + hop * (t - 1))
+    plain = fk.synthesis_ola_plain(sre, sim, kc, ks, hop)
+    assert rel_err(got, plain) <= TOL[mode]
+    assert torch.equal(got, fk.synthesis_ola(sre, sim, kc, ks, hop))
+    if mode == "highest":
+        assert rel_err(got, fk.synthesis_ola_3xtf32_plain(sre, sim, kc, ks, hop)) <= TOL[mode]
+        ref = synthesis_fp64(sre, sim, kc, ks, hop)
+        assert rel_err(got, ref) <= 4 * rel_err(plain, ref)
+
+
+def _route_case(op, cuda):
+    """(loss of the leaves, leaves) of one framed op on the card: K1 at
+    257 x 512, K6's envelope at 65 x 4096 (K1's function), K2, K3."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    n = 4096 if op == "K6" else 512
+    x = torch.randn(2, n + 64 * 20 + 3, generator=g, device=cuda)
+    w = [torch.randn(65 if op == "K6" else 257, n, generator=g, device=cuda) * 0.05
+         for _ in range(2)]
+    if op in ("K1", "K6"):
+        assert td.kchunk_envelope(*w[0].shape) == (op == "K6")
+        return lambda x, wc, ws: td.framed_magnitude(x, wc, ws, 64, eps=1e-8).sum(), [x, *w]
+    if op == "K2":
+        fb = torch.rand(40, 257, generator=g, device=cuda)
+        return (lambda x, wc, ws, fb: (td.framed_filterbank(x, wc, ws, fb, 64, eps=1e-8)
+                                       ** 2).mean(), [x, *w, fb])
+    spec = [torch.randn(2, 257, 21, generator=g, device=cuda) for _ in range(2)]
+    target = torch.randn(2, 512 + 64 * 20, generator=g, device=cuda)
+    return (lambda sre, sim, kc, ks: ((td.synthesis_ola(sre, sim, kc, ks, 64) - target)
+                                      ** 2).sum(), [*spec, *w])
+
+
+@pytest.mark.parametrize("op", ["K1", "K2", "K3", "K6"])
+def test_kernel_route_gradients_match_plain_route(cuda, mode, op):
+    """The gradients of every input of K1, K2, K3 and K6 on the kernel route
+    (the pair, K5, in the forward of K1, K2 and K6; K3 and its backward)
+    against the plain route's; the differentiated forwards launch no K1, K2
+    or K6."""
+    loss_fn, leaves = _route_case(op, cuda)
+    before = dict(fk.LAUNCHES)
+    loss, grads = grads_of(loss_fn, leaves)
+    torch.cuda.synchronize()
+    launched = {k: fk.LAUNCHES[k] - before[k] for k in before}
+    assert launched["framed_magnitude"] == launched["framed_filterbank"] == 0
+    assert launched["framed_magnitude_kchunk"] == 0
+    # K3 forward and dx; K5 forward, and the spectra's gradient of K3
+    assert launched["framed_pair"] == 1 and launched["synthesis_ola"] == 1
+    config.set_use_kernels(False)
+    try:
+        want_loss, want = grads_of(loss_fn, leaves)
+    finally:
+        config.set_use_kernels(True)
+    assert rel_err(loss, want_loss) <= TOL[mode]
+    for got, ref in zip(grads, want):
+        assert torch.isfinite(got).all() and rel_err(got, ref) <= TOL[mode]
+
+
+def test_only_the_gl_step_backward_raises(cuda):
+    x = torch.randn(1, 4096, device=cuda)
+    w = torch.randn(65, 512, device=cuda, requires_grad=True)
+    t = num_frames(4096, 512, 64)
+    S, p_re, p_im = (torch.rand(1, 65, t, device=cuda) for _ in range(3))
+    out = fk.gl_step(x, w, w, S, p_re, p_im, 64, MOM)[0]
+    with pytest.raises(NotImplementedError, match="no gradient"):
         out.sum().backward()

@@ -468,3 +468,33 @@ def test_filterbank_plain_in_bf16_storage_matches_interpreted_pallas(
     finally:
         config.set_matmul_precision("highest")
     assert np.abs(got.numpy() - want).max() / np.abs(want).max() <= 5e-2
+
+
+# (B, F, T, N, hop): the slice's hops, an odd hop, hop 3, and the flat CQT
+# inverse's bank (84 bins of 16384 samples at hop 128)
+SYNTHESIS_CASES = [(2, 65, 9, 2048, 512), (2, 100, 7, 2048, 441), (2, 129, 12, 1024, 256),
+                   (2, 257, 15, 512, 128), (1, 201, 40, 400, 3), (1, 84, 12, 16384, 128)]
+
+
+@pytest.mark.parametrize("b,f,t,n,hop", SYNTHESIS_CASES)
+def test_3xtf32_plain_synthesis_matches_plain_and_jax(b, f, t, n, hop):
+    """K3's tensor-core arithmetic in fp32 storage (the split operands, each
+    step of 32 bins summed from zero, then overlap-added in the K loop),
+    repeated in plain PyTorch, against the plain version and the JAX
+    package's ``synthesis_ola`` (1e-4), and against fp64 (within 4x the
+    plain fp32 version's error)."""
+    rng = np.random.RandomState(31)
+    sre, sim = (rng.randn(b, f, t).astype(np.float32) for _ in range(2))
+    kc, ks = ((rng.randn(f, n) / n).astype(np.float32) for _ in range(2))
+    args = list(map(torch.from_numpy, (sre, sim, kc, ks)))
+    got = fk.synthesis_ola_3xtf32_plain(*args, hop)
+    plain = fk.synthesis_ola_plain(*args, hop)
+    _close(got, plain)
+    _close(got, jd.synthesis_ola(*map(jnp.asarray, (sre, sim, kc, ks)), hop))
+    frames = (np.einsum("fj,bft->btj", kc.astype(np.float64), sre)
+              - np.einsum("fj,bft->btj", ks.astype(np.float64), sim))
+    ref = tframe.frames_to_signal(torch.from_numpy(frames), hop, n + hop * (t - 1)).numpy()
+    scale = np.abs(ref).max()
+    e_split = np.abs(got.numpy() - ref).max() / scale
+    e_plain = np.abs(plain.numpy() - ref).max() / scale
+    assert e_split <= 4 * e_plain, (e_split, e_plain)

@@ -72,7 +72,23 @@ def test_the_tensor_core_kernels_have_their_own_source():
         assert fk._SIGNATURES[entry][0] == "framed_tc"
     for epilogue in ("PAIR", "MAGNITUDE", "FILTERBANK", "GL_STEP"):
         assert f"epilogue == {epilogue}" in tc
+    # the `wgmma` building blocks are shared with K3 in one header
+    assert '#include "tc_common.cuh"' in tc
+    tc += (csrc / "tc_common.cuh").read_text()
     assert "wgmma.mma_async" in tc and "fmaf" not in tc
+
+
+def test_the_synthesis_runs_on_the_tensor_cores():
+    """K3 keeps its entry point and source, csrc/synthesis_ola.cu, and runs
+    the shared `wgmma` main loop's parts: no FMA loop is left."""
+    from nnaudio_tpu_torch.ops import framed_kernels as fk
+
+    csrc = ROOT / "nnaudio_tpu_torch/csrc"
+    syn = (csrc / "synthesis_ola.cu").read_text()
+    assert 'extern "C" int nnaudio_synthesis_ola(' in syn
+    assert fk._SIGNATURES["nnaudio_synthesis_ola"][0] == "synthesis_ola"
+    assert '#include "tc_common.cuh"' in syn and "Mma<" in syn
+    assert "fmaf" not in syn
 
 
 def _port_sources():
