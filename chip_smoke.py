@@ -16,9 +16,12 @@ Phases:
     chunk divides and at an odd signal length, twice for bit equality, and
     their 3xTF32 arithmetic against fp64 beside the plain fp32 version's (K5
     the product, K2 the filterbank of the power, K4 its four carries); the
-    split-K magnitude (K6)
-    against the plain version and against K1 at the CQT shape (84 real
-    wavelets of 16384 samples, B=32 and B=1) and at odd shapes; the
+    banded split-K magnitude (K6) against the plain version and against K1
+    at the CQT shape (84 wavelets of 16384 samples, B=32 and B=1), on that
+    bank with one entry set far outside an atom and with its middle group
+    zero, on CQT1992's dense composed bank and at odd shapes, twice for bit
+    equality, in fp32 against fp64 beside the plain fp32 version, and its
+    pre-pass's group ranges against the plain ones (``[bank]`` lines); the
     synthesis (K3, on the tensor cores) at (b)'s, (e)'s and (h)'s inverse
     shapes and hops 160, 441 and 3, twice for bit equality, and in fp32
     storage against fp64 beside the plain fp32 version's error;
@@ -54,8 +57,12 @@ Phases:
     its plain version and one PyTorch library call computing the same
     function, K1 and K5 also on one clip (for
     K4 a composite: ``torch.stft`` and the elementwise update; for K6 two
-    strided ``F.conv1d`` and ``torch.hypot``), K1 at K6's shapes, and K6
-    over a range of split counts, K2 also at (c)'s shape, K3 also at (e)'s;
+    strided ``F.conv1d`` and ``torch.hypot``; its bound counts the products
+    against the bank's nonzero entries), K1 at K6's shapes, and K6 over a
+    range of split counts, K2 also at (c)'s shape, K3 also at (e)'s; the
+    K1 / K6 dispatch swept over B = 1-32 on the CQT banks and dense banks of
+    64-128 bins x 2048-16384 samples (``[sweep]`` lines, with what the
+    dispatch rule loses where it picks the slower kernel);
     paths (a)-(c), (e)-(i) and the train steps also print one call's device
     time by kernel under ``torch.profiler``, which fails if it misses a
     kernel the call launched;
@@ -102,7 +109,7 @@ PROFILE_NAMES = {"framed_magnitude": "framed_tc_kernel",
                  "framed_filterbank": "framed_tc_kernel",
                  "synthesis_ola": "synthesis_tc_kernel", "gl_step": "framed_tc_kernel",
                  "framed_pair": "framed_tc_kernel",
-                 "framed_magnitude_kchunk": "kchunk_kernel"}
+                 "framed_magnitude_kchunk": "kchunk_tc_kernel"}
 
 
 def log(*a):
@@ -319,11 +326,11 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     from nnaudio_tpu_torch import config
-    from nnaudio_tpu_torch.features import (CQT1992v2, CQT2010v2, Griffin_Lim,
+    from nnaudio_tpu_torch.features import (CQT1992, CQT1992v2, CQT2010v2, Griffin_Lim,
                                             InverseMelSpectrogram,
                                             MelSpectrogram, STFT, VQT, iSTFT)
     from nnaudio_tpu_torch.models import SpectrogramClassifier
-    from nnaudio_tpu_torch.ops import build, framed_kernels as fk
+    from nnaudio_tpu_torch.ops import build, dispatch as td, framed_kernels as fk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -350,7 +357,8 @@ def main() -> int:
     # where the tensor-core kernels' spills run: the multiplying warpgroups
     # hold the accumulators, the loading ones only addresses
     for lib_name, kernel in (("framed_tc", "framed_tc_kernel"),
-                             ("synthesis_ola", "synthesis_tc_kernel")):
+                             ("synthesis_ola", "synthesis_tc_kernel"),
+                             ("framed_kchunk", "kchunk_tc_kernel")):
         spills = spill_report(build.library(lib_name)._name, build._nvcc())
         for func, by_role in (spills or {}).items():
             if kernel in func:
@@ -545,18 +553,48 @@ def main() -> int:
             del x, wc, ws, fb, S, prev, got, again, want
     config.set_matmul_precision("highest")
 
-    # K6 against the plain version and against K1 on the same inputs:
-    # (label, B, L, N, hop, F); F None takes CQT1992v2's default wavelets
+    # K6 against the plain version and against K1 on the same inputs. The
+    # banks: CQT1992v2's default wavelets (84 x 16384, each centred in its
+    # row), the same with one entry set at column 0 of the top bin and with
+    # its middle group of bins zero, and CQT1992's fp64-composed basis of the
+    # same shape, which is dense
     cqt = CQT1992v2(verbose=False, device=dev)  # 84 bins of 16384 samples
+    c1992 = CQT1992(fmin=32.7, device=dev)
     n_cqt = cqt.kernel_width
     len_cqt = 22050 * 10 + n_cqt  # 10 s, center-padded
-    filled = float(cqt.lenghts.sum()) / (cqt.lenghts.numel() * n_cqt)
-    log(f"[bank] CQT1992v2 default bank {cqt.lenghts.numel()} x {n_cqt}: atoms of "
-        f"{int(cqt.lenghts.min())} to {int(cqt.lenghts.max())} samples fill "
-        f"{100 * filled:.1f}% of its columns; K6 multiplies all of them")
+    wc_cqt, ws_cqt = cqt.cqt_kernels_real, cqt.cqt_kernels_imag
+    edited = wc_cqt.clone()
+    edited[-1, 0] = wc_cqt.abs().max()
+    middle = -(-wc_cqt.shape[0] // fk.KCHUNK_GROUP) // 2 * fk.KCHUNK_GROUP
+    zero_group = [w.clone() for w in (wc_cqt, ws_cqt)]
+    for w in zero_group:
+        w[middle:middle + fk.KCHUNK_GROUP] = 0
+    banks = {"cqt": (wc_cqt, ws_cqt), "cqt edited": (edited, ws_cqt),
+             "cqt zero group": tuple(zero_group),
+             "cqt1992": (c1992.combined_real, c1992.combined_imag)}
+    for label, key in (("CQT1992v2() default bank", "cqt"),
+                       ("CQT1992(fmin=32.7) composed bank", "cqt1992")):
+        wc, ws = banks[key]
+        got = fk.kchunk_ranges(wc, ws).cpu()
+        want = fk.kchunk_ranges_plain(wc, ws).cpu()
+        nnz = int(((wc != 0) | (ws != 0)).sum())
+        bk = fk.KCHUNK_BK[torch.float32]
+        work = sum(-(-int(hi) // bk) - int(lo) // bk for lo, hi in want.tolist() if hi > lo)
+        log(f"[bank] {label} {wc.shape[0]} x {wc.shape[1]}: group ranges [k_lo, k_hi) "
+            f"of {fk.KCHUNK_GROUP} bins from K6's pre-pass: "
+            + " ".join(f"[{lo}, {hi})" for lo, hi in got.tolist())
+            + f"; nonzero entries {nnz} of {wc.numel()} ({100 * nnz / wc.numel():.2f}%, "
+            f"the structural fill); active group-chunks of {bk} samples {work} of "
+            f"{len(want) * -(-wc.shape[1] // bk)} ({100 * work / (len(want) * -(-wc.shape[1] // bk)):.1f}%)")
+        if not torch.equal(got, want):
+            fail(f"K6's pre-pass ranges differ from the plain ones on {label}: {got} vs {want}")
+    # (label, B, L, N, hop, bank): a key of `banks`, or F for a dense random bank
     k6_cases = [
-        ("CQT B=32", 32, len_cqt, n_cqt, 512, None),
-        ("CQT B=1", 1, len_cqt, n_cqt, 512, None),
+        ("CQT B=32", 32, len_cqt, n_cqt, 512, "cqt"),
+        ("CQT B=1", 1, len_cqt, n_cqt, 512, "cqt"),
+        ("CQT, top bin col 0 set", 2, len_cqt, n_cqt, 512, "cqt edited"),
+        ("CQT, middle group 0", 2, len_cqt, n_cqt, 512, "cqt zero group"),
+        ("CQT1992 dense", 4, len_cqt, n_cqt, 512, "cqt1992"),
         ("84 x 8192, hop 512", 2, 16384, 8192, 512, 84),
         ("64 x 4096, hop 320", 1, 12000, 4096, 320, 64),
         ("hop 441", 2, 40000, 8192, 441, 96),
@@ -568,11 +606,11 @@ def main() -> int:
     ]
     for mode in ("highest", "default"):
         config.set_matmul_precision(mode)
-        for label, b, length, n, hop, f in k6_cases:
-            if f is None:
-                wc, ws = cqt.cqt_kernels_real, cqt.cqt_kernels_imag
+        for label, b, length, n, hop, bank in k6_cases:
+            if isinstance(bank, str):
+                wc, ws = banks[bank]
             else:
-                wc, ws = randn(f, n) * 0.05, randn(f, n) * 0.05
+                wc, ws = randn(bank, n) * 0.05, randn(bank, n) * 0.05
             x = randn(b, length)
             errs = {}
             for tag, kw in (("mag", dict(eps=1e-8)), ("power", dict(square=True))):
@@ -587,18 +625,40 @@ def main() -> int:
                     max_abs["framed_magnitude_kchunk"] = max(
                         max_abs["framed_magnitude_kchunk"],
                         float((k6 - p6).abs().max()))
+                if mode == "highest" and tag == "mag" and bank in ("cqt", "cqt1992") and b > 1:
+                    # fp32 accuracy of the 3xTF32 products: against fp64,
+                    # beside the plain fp32 version's error
+                    sub = slice(0, 4)
+                    frames = x[sub].double().unfold(-1, n, hop)
+                    re = torch.einsum("fn,btn->bft", wc.double(), frames)
+                    im = torch.einsum("fn,btn->bft", ws.double(), frames)
+                    ref = (re * re + im * im + 1e-8).sqrt()
+                    e_kernel, e_plain = rel_err(k6[sub], ref), rel_err(p6[sub], ref)
+                    ok64 = e_kernel <= 4 * e_plain
+                    log(f"[check] highest  K6 3xTF32 against the fp64 magnitude, {label}, "
+                        f"{ref.shape[0]} clips: kernel {e_kernel:.2e}, plain fp32 version "
+                        f"{e_plain:.2e} (limit 4x) {'ok' if ok64 else 'FAIL'}")
+                    if not ok64:
+                        fail("K6 in fp32 storage is less accurate than 4x its plain fp32 version")
+                    del frames, re, im, ref
                 again = fk.framed_magnitude_kchunk(x, wc, ws, hop, **kw)
                 if not torch.equal(k6, again):
                     fail(f"K6 is not deterministic: {mode} {label} {tag}")
                 del k6, k1, p6, again
-            splits, kper = fk.kchunk_plan(b, fk.num_frames(length, n, hop), n)
-            ok = all(e <= TOL[mode] for e in errs.values())
-            log(f"[check] {mode:8s} K6 {label:20s} B={b} L={length} N={n} hop={hop} "
-                f"F={wc.shape[0]} T={fk.num_frames(length, n, hop)} splits={splits} "
-                f"x {kper}: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-                + f" (tol {TOL[mode]:g}) {'ok' if ok else 'FAIL'}")
+            same = torch.equal(fk.kchunk_ranges(wc, ws).cpu(),
+                               fk.kchunk_ranges_plain(*(w.to(config.storage_dtype())
+                                                        for w in (wc, ws))).cpu())
+            t = fk.num_frames(length, n, hop)
+            splits = fk.kchunk_plan(b, t, n)
+            ok = all(e <= TOL[mode] for e in errs.values()) and same
+            log(f"[check] {mode:8s} K6 {label:22s} B={b} L={length} N={n} hop={hop} "
+                f"F={wc.shape[0]} T={t} splits={splits}: "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" (tol {TOL[mode]:g}), second launch bit-equal, pre-pass ranges "
+                f"{'equal' if same else 'DIFFER'} {'ok' if ok else 'FAIL'}")
             if not ok:
-                fail(f"K6 disagrees with its plain version or with K1: {mode} {label}")
+                fail(f"K6 disagrees with its plain version, K1 or the plain ranges: "
+                     f"{mode} {label}")
             del x
         # K3 at the flat CQT inverse's shape: F=84 bins, N=16384, hop 128
         sre, sim = randn(2, 84, 300), randn(2, 84, 300)
@@ -904,9 +964,8 @@ def main() -> int:
                   expect={"framed_magnitude_kchunk": 1})
             ms_g = cuda_ms(lambda: cqt(xg))
             ms_g1 = cuda_ms(lambda: cqt(x1))
-            if mode == "highest":
-                log_profile("g", lambda: cqt(xg))
-                log_profile("g, one clip", lambda: cqt(x1))
+            log_profile(f"g, {mode}", lambda: cqt(xg))
+            log_profile(f"g, {mode}, one clip", lambda: cqt(x1))
         results[f"g_{mode}_audio_s_per_s"] = batch * secs / (ms_g / 1e3)
         results[f"g1_{mode}_audio_s_per_s"] = secs / (ms_g1 / 1e3)
         log(f"[serve] (g) {mode}: {batch} x {secs} s in {ms_g:.3f} ms = "
@@ -1205,9 +1264,14 @@ def main() -> int:
                 bytes=esz * (b4 * length4 + 2 * f4 * n4) + (4 + 6 * 2) * b4 * f4 * t4,
                 shape=f"B={b4} L={length4} n_fft={n4} hop=256 F={f4} T={t4}, bf16 carries")
             # K6 at (g): the CQT1992v2 bank, B=32 and one clip; K1 forced onto
-            # the same inputs, and K6 over a range of split counts
+            # the same inputs, and K6 over a range of split counts. Its bound
+            # counts the products against the bank's nonzero entries (the
+            # structural work, what any implementation of the function needs
+            # on this bank); the dense count is printed beside it
             wc6, ws6 = cqt.cqt_kernels_real, cqt.cqt_kernels_imag
             f6, t6 = wc6.shape[0], 431
+            nnz6 = int(((wc6.to(config.storage_dtype()) != 0)
+                        | (ws6.to(config.storage_dtype()) != 0)).sum())
             for key, b6 in (("framed_magnitude_kchunk", batch),
                             ("framed_magnitude_kchunk B=1", 1)):
                 x6 = randn(b6, len_cqt)
@@ -1222,10 +1286,10 @@ def main() -> int:
                     plain_ms=kernel_ms(lambda: fk.framed_magnitude_plain(x6, wc6, ws6, 512)),
                     library_ms=kernel_ms(conv_lib),
                     library="2 x F.conv1d(stride=hop) + torch.hypot",
-                    flops=4 * b6 * t6 * f6 * n_cqt,
+                    flops=4 * b6 * t6 * nnz6, dense_flops=4 * b6 * t6 * f6 * n_cqt,
                     bytes=esz * (b6 * len_cqt + 2 * f6 * n_cqt) + 4 * b6 * f6 * t6,
                     shape=f"B={b6} L={len_cqt} N={n_cqt} hop=512 F={f6} T={t6}")
-                planned = fk.kchunk_plan(b6, t6, n_cqt)[0]
+                planned = fk.kchunk_plan(b6, t6, n_cqt)
                 sweep = {s_: kernel_ms(lambda: fk.framed_magnitude_kchunk(
                     x6, wc6, ws6, 512, splits=s_)) for s_ in (1, 2, 3, 4, 6, 8, 10, 16, 32)}
                 rows[key]["split_sweep_ms"] = sweep
@@ -1244,14 +1308,54 @@ def main() -> int:
                 f"{' (' + r['library'] + ')' if 'library' in r else ''}, "
                 f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
                 f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, roofline share "
-                f"{100 * r['roofline_share']:.1f}%")
+                f"{100 * r['roofline_share']:.1f}%"
+                + (f"; dense count {r['dense_flops'] / 1e9:.2f} GFLOP, its bound "
+                   f"{r['dense_flops'] / peak * 1e3:.3f} ms" if "dense_flops" in r else ""))
         return rows
 
     for mode in ("highest", "default"):
         timings[mode] = time_set(mode)
     config.set_matmul_precision("highest")
+
+    # The K1 / K6 dispatch: both kernels on the same inputs (10 s clips at
+    # 22.05 kHz, hop 512; (h)'s bank at its hop 128) over B = 1-32, on the
+    # CQT banks and on dense random banks, and what the dispatch rule
+    # (ops.dispatch.kchunk_envelope) loses where it picks the slower one
+    sweep_banks = [("CQT1992v2() 84x16384", wc_cqt, ws_cqt, 512),
+                   ("(h) CQT1992v2 48x8192", cqt_h.cqt_kernels_real,
+                    cqt_h.cqt_kernels_imag, 128),
+                   ("CQT1992 dense 84x16384", *banks["cqt1992"], 512)]
+    sweep_banks += [(f"dense {f}x{n}", randn(f, n) * 0.05, randn(f, n) * 0.05, 512)
+                    for f in (64, 84, 128) for n in (2048, 4096, 8192, 16384)]
+    sweep = []
+    with torch.no_grad():
+        for mode in ("highest", "default"):
+            config.set_matmul_precision(mode)
+            for label, wc, ws, hop in sweep_banks:
+                f, n = wc.shape
+                xs_all = randn(batch, sr_b * secs + n)
+                for b in (1, 2, 4, 8, 16, 32):
+                    xb = xs_all[:b]
+                    k1 = cuda_ms(lambda: fk.framed_magnitude(xb, wc, ws, hop), queue_ahead=True)
+                    k6 = cuda_ms(lambda: fk.framed_magnitude_kchunk(xb, wc, ws, hop),
+                                 queue_ahead=True)
+                    pick = "K6" if td.kchunk_envelope(f, n) else "K1"
+                    loss = (k6 if pick == "K6" else k1) - min(k1, k6)
+                    sweep.append(dict(mode=mode, bank=label, B=b, k1_ms=k1, k6_ms=k6,
+                                      pick=pick, loss_ms=loss))
+                    log(f"[sweep] {mode:8s} {label:22s} B={b:2d}: K1 {k1:.3f} ms, K6 "
+                        f"{k6:.3f} ms, faster {'K6' if k6 < k1 else 'K1'}; the rule picks "
+                        f"{pick}, loses {loss:.3f} ms ({100 * loss / min(k1, k6):.1f}%)")
+                del xs_all
+    config.set_matmul_precision("highest")
+    for mode in ("highest", "default"):
+        lost = [r for r in sweep if r["mode"] == mode and r["loss_ms"] > 0]
+        log(f"[sweep] {mode:8s} the rule picks the slower kernel in {len(lost)} of "
+            f"{sum(r['mode'] == mode for r in sweep)} cases, losing "
+            f"{sum(r['loss_ms'] for r in lost):.3f} ms in all, at most "
+            f"{max([r['loss_ms'] for r in lost], default=0.0):.3f} ms")
     log("[timings] " + json.dumps({"card": card, "results": results,
-                                   "timings": timings}))
+                                   "timings": timings, "sweep": sweep}))
 
     # -------------------------------------------------------- 6. summary --
     # (source, TPU kernel replaced, precision mode of the row: the mode the

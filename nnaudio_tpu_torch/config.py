@@ -11,13 +11,12 @@ CQT/VQT pyramid runs its serial chain and per-octave loop.
 - ``tensorfloat32``: TF32 for plain matmuls; the kernels store fp32.
 
 In the kernels: the magnitude (K1), the filterbank (K2), the synthesis (K3),
-the Griffin-Lim step (K4) and the pair (K5) run on the tensor cores. With
-fp32 storage (``highest`` and ``tensorfloat32``) they take three TF32
-products of operands split into a high and a low TF32 part and accumulate in
-fp32, which keeps fp32 accuracy; with bf16 storage (``default``) one bf16
-tensor-core product with fp32 accumulation (K2 also rounds the power to bf16
-for its projection). The split-K magnitude (K6) still runs fp32 FMA on the
-CUDA cores in both storage types.
+the Griffin-Lim step (K4), the pair (K5) and the split-K magnitude (K6) run
+on the tensor cores. With fp32 storage (``highest`` and ``tensorfloat32``)
+they take three TF32 products of operands split into a high and a low TF32
+part and accumulate in fp32, which keeps fp32 accuracy; with bf16 storage
+(``default``) one bf16 tensor-core product with fp32 accumulation (K2 also
+rounds the power to bf16 for its projection).
 
 There is no jit cache to salt and no backend probe: PyTorch runs eagerly and
 dispatch keys on the device of the tensor it is given.

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// framed_tc.cu (K1, K2, K4, K5) and synthesis_ola.cu (K3): `wgmma` with A from
-// registers and B from shared memory in the 128-byte swizzle, the `ldmatrix`
-// read of A, the TF32 rounding of the 3xTF32 split, `mbarrier`s, and TMA
-// loads of 128-row boxes through tensor maps encoded at run time.
+// framed_tc.cu (K1, K2, K4, K5), synthesis_ola.cu (K3) and framed_kchunk.cu
+// (K6): `wgmma` with A from registers and B from shared memory in the
+// 128-byte swizzle, the `ldmatrix` read of A, the TF32 rounding of the
+// 3xTF32 split, `mbarrier`s, and TMA loads of 128-row boxes through tensor
+// maps encoded at run time.
 #pragma once
 
 #include <cuda.h>
@@ -52,12 +53,15 @@ __device__ __forceinline__ uint64_t tile_descriptor(uint32_t smem_addr) {
 #define NN_D8(o)                                                              \
   "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), \
       "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
-#define NN_D32 NN_D8(0), NN_D8(8), NN_D8(16), NN_D8(24)
+#define NN_D16 NN_D8(0), NN_D8(8)
+#define NN_D32 NN_D16, NN_D8(16), NN_D8(24)
 #define NN_D56 NN_D32, NN_D8(32), NN_D8(40), NN_D8(48)
 #define NN_D64 NN_D56, NN_D8(56)
+#define NN_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define NN_R16 NN_R8 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define NN_R32                                                                 \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
-  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+  NN_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+         "%29, %30, %31"
 #define NN_R56                                                               \
   NN_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, " \
          "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55"
@@ -82,9 +86,13 @@ template <typename S, int BT> struct Mma;
                      "r"(scale_d));                                           \
     }                                                                         \
   };
+NN_MMA(float, 16, "m64n16k8.f32.tf32.tf32", NN_R8, NN_D8(0), "{%8, %9, %10, %11}", "%12", "%13", "1, 1")
+NN_MMA(float, 32, "m64n32k8.f32.tf32.tf32", NN_R16, NN_D16, "{%16, %17, %18, %19}", "%20", "%21", "1, 1")
 NN_MMA(float, 64, "m64n64k8.f32.tf32.tf32", NN_R32, NN_D32, "{%32, %33, %34, %35}", "%36", "%37", "1, 1")
 NN_MMA(float, 112, "m64n112k8.f32.tf32.tf32", NN_R56, NN_D56, "{%56, %57, %58, %59}", "%60", "%61", "1, 1")
 NN_MMA(float, 128, "m64n128k8.f32.tf32.tf32", NN_R64, NN_D64, "{%64, %65, %66, %67}", "%68", "%69", "1, 1")
+NN_MMA(__nv_bfloat16, 16, "m64n16k16.f32.bf16.bf16", NN_R8, NN_D8(0), "{%8, %9, %10, %11}", "%12", "%13", "1, 1, 0")
+NN_MMA(__nv_bfloat16, 32, "m64n32k16.f32.bf16.bf16", NN_R16, NN_D16, "{%16, %17, %18, %19}", "%20", "%21", "1, 1, 0")
 NN_MMA(__nv_bfloat16, 64, "m64n64k16.f32.bf16.bf16", NN_R32, NN_D32, "{%32, %33, %34, %35}", "%36", "%37", "1, 1, 0")
 NN_MMA(__nv_bfloat16, 112, "m64n112k16.f32.bf16.bf16", NN_R56, NN_D56, "{%56, %57, %58, %59}", "%60", "%61", "1, 1, 0")
 NN_MMA(__nv_bfloat16, 128, "m64n128k16.f32.bf16.bf16", NN_R64, NN_D64, "{%64, %65, %66, %67}", "%68", "%69", "1, 1, 0")

@@ -32,10 +32,15 @@ from . import framed_kernels as fk
 
 
 #: least contraction length (samples per frame) at which the magnitude ops
-#: take K6 instead of K1. The smaller of the JAX suite's two K6 cases; no
-#: H100 measurement has moved it yet (``chip_smoke.py`` times both kernels
-#: at the same shapes).
-KCHUNK_MIN_N = 4096
+#: take K6 instead of K1, from the H100 sweep of both kernels over B = 1-32
+#: on the CQT banks and dense banks of 64-128 bins x 2048-16384 samples
+#: (``chip_smoke.py`` ``[sweep]`` lines, ``PERF.md``): K6 fills the card at
+#: small batches where K1 leaves it idle and skips the zero columns of the
+#: CQT's wavelets; it was the slower of the two in at most 3 of 180 swept
+#: cases (dense banks of 128 bins at B >= 16), by at most 0.005 ms. The
+#: dispatch does not read the bank, so the banded and the dense bank of one
+#: shape go the same way.
+KCHUNK_MIN_N = 2048
 
 
 def kchunk_envelope(f: int, n: int) -> bool:

@@ -12,7 +12,10 @@ wrapper                      CUDA kernel (``csrc/``)         TPU kernel replaced
 ===========================  ==============================  =====================
 
 K1 and K6 compute one function, ``framed_magnitude_plain``: K6 is its
-split-K form for a bank of at most 128 bins and a long contraction.
+split-K form for a bank of at most 128 bins and a long contraction, with
+each group of :data:`KCHUNK_GROUP` bins multiplied only over the columns
+where its rows are nonzero (:func:`kchunk_ranges`), found on the device at
+every call.
 
 K1, K2, K4 and K5 are one tensor-core kernel (``wgmma``) with four
 epilogues. In fp32 storage it takes three TF32 products of operands split as
@@ -20,9 +23,8 @@ epilogues. In fp32 storage it takes three TF32 products of operands split as
 :func:`framed_pair_3xtf32_plain`, :func:`framed_filterbank_3xtf32_plain` and
 :func:`gl_step_3xtf32_plain` repeat that arithmetic in plain PyTorch. In bf16
 storage it takes one bf16 product (K2 also rounds the power to bf16 for its
-projection). K3 runs on the tensor cores too, with the same split
-(:func:`synthesis_ola_3xtf32_plain`). K6 runs fp32 FMA on the CUDA cores in
-both storage types.
+projection). K3 and K6 run on the tensor cores too, with the same split
+(:func:`synthesis_ola_3xtf32_plain`, :func:`framed_magnitude_banded_3xtf32_plain`).
 
 A wrapper given a CPU tensor computes its plain version; given a CUDA tensor
 it launches its kernel or raises. It checks device, dtype and shape, makes
@@ -342,7 +344,11 @@ _SIGNATURES = {
         [_VOID] * 10 + [_INT] * 6 + [ctypes.c_float, _INT, _INT, _VOID]),
     "nnaudio_framed_magnitude_kchunk": (
         "framed_kchunk",
-        [_VOID] * 6 + [_INT] * 8 + [ctypes.c_float, _INT, _INT, _VOID]),
+        [_VOID] * 5 + [ctypes.c_longlong] + [_INT] * 7 + [ctypes.c_float, _INT, _INT,
+                                                          _VOID]),
+    "nnaudio_kchunk_ranges": (
+        "framed_kchunk",
+        [_VOID] * 3 + [ctypes.c_longlong] + [_INT] * 4 + [_VOID]),
 }
 _fns: dict[str, object] = {}
 
@@ -430,34 +436,128 @@ def _launch_magnitude(x, wcos, wsin, hop, eps, square):
     return out
 
 
-#: K6 takes banks of at most this many bins (one bin tile per block)
+#: K6 takes banks of at most this many bins (one block holds them all)
 KCHUNK_MAX_F = 128
-#: frames per block tile and K chunk of ``csrc/framed_kchunk.cu``
-KCHUNK_BT, KCHUNK_BK = 64, 16
-#: K6 cuts K until the grid has this many blocks (sixteen per SM of an H100:
-#: many small blocks leave a short tail behind the last full wave) ...
-KCHUNK_TARGET_BLOCKS = 16 * 132
-#: ... but leaves every split at least this many samples of K
+#: bins of one group of ``csrc/framed_kchunk.cu``: the N side of a product
+#: is the group's cos and sin rows, and its K range is the hull of its rows'
+KCHUNK_GROUP = 32
+#: frames per block of K6 (two multiplying warpgroups of 64)
+KCHUNK_BT = 128
+#: samples of one K chunk (a 128-byte row) by storage type: the unit of the
+#: groups' ranges and of the splits
+KCHUNK_BK = {torch.float32: 32, torch.bfloat16: 64}
+#: K6 cuts K until the grid fills one wave of this many blocks (one per SM
+#: of an H100: a block takes ~190 KB of shared memory) ...
+KCHUNK_TARGET_BLOCKS = 132
+#: ... but leaves every split at least this many samples of K on average
 KCHUNK_MIN_SPLIT_K = 512
+#: K6's workspace: a header of int32 ranges (the rows', then from byte
+#: KCHUNK_GROUP_RANGES the groups'), the packed bank, the split partials
+KCHUNK_HEADER_BYTES = 2048
+KCHUNK_GROUP_RANGES = 1024
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def kchunk_plan(b: int, t: int, n: int, splits: int | None = None) -> tuple[int, int]:
-    """``(splits, kper)`` of K6 for a batch of ``b`` signals, ``t`` frames and
-    a contraction of ``n`` samples: a function of the shapes alone. Split
-    ``s`` sums the samples ``[s * kper, min(n, (s + 1) * kper))``; ``kper``
-    is a multiple of the kernel's K chunk and no split is empty. ``splits``
-    asks for a split count instead of the planned one."""
+def kchunk_plan(b: int, t: int, n: int, splits: int | None = None) -> int:
+    """K6's split count for a batch of ``b`` signals, ``t`` frames and a
+    contraction of ``n`` samples: a function of the shapes alone. The kernel
+    gives each split an equal share of the bank's work, found on the device;
+    a split may come out empty. ``splits`` asks for a count instead of the
+    planned one."""
     if splits is None:
         base = b * _ceil_div(t, KCHUNK_BT)
-        splits = min(_ceil_div(KCHUNK_TARGET_BLOCKS, base),
-                     n // KCHUNK_MIN_SPLIT_K)
-    splits = max(1, min(splits, _ceil_div(n, KCHUNK_BK)))
-    kper = _ceil_div(_ceil_div(n, splits), KCHUNK_BK) * KCHUNK_BK
-    return _ceil_div(n, kper), kper
+        splits = min(KCHUNK_TARGET_BLOCKS // base, n // KCHUNK_MIN_SPLIT_K)
+    return max(1, min(splits, _ceil_div(n, KCHUNK_BK[torch.float32])))
+
+
+def kchunk_workspace_bytes(b: int, f: int, n: int, t: int, splits: int,
+                           dtype: torch.dtype) -> int:
+    """Bytes of K6's workspace, as ``layout()`` in ``csrc/framed_kchunk.cu``
+    counts them: the header, the packed bank (per plane, ``2 * cap`` rows of
+    ``npad`` samples; fp32 has a TF32 hi and a lo plane), and with more than
+    one split the partial re and im, each (splits, B, F, T) fp32."""
+    cap = _ceil_div(f, 32) * 32
+    bk = KCHUNK_BK[dtype]
+    npad = _ceil_div(n, bk) * bk
+    planes, esz = (2, 4) if dtype == torch.float32 else (1, 2)
+    packed = _ceil_div(planes * 2 * cap * npad * esz, 256) * 256
+    partial = 2 * splits * b * f * t * 4 if splits > 1 else 0
+    return KCHUNK_HEADER_BYTES + packed + partial
+
+
+def kchunk_ranges_plain(wcos, wsin, group: int = KCHUNK_GROUP):
+    """(ceil(F / group), 2) int64: per group of ``group`` bins the range
+    ``[k_lo, k_hi)`` of the columns where any of its rows has a nonzero cos
+    or sin entry (a NaN counts), ``(0, 0)`` for a group that is all zero."""
+    f, n = wcos.shape
+    nonzero = (wcos != 0) | (wsin != 0)
+    groups = _ceil_div(f, group)
+    pad = nonzero.new_zeros((groups * group - f, n))
+    nonzero = torch.cat((nonzero, pad)).reshape(groups, group, n).any(1)
+    k = torch.arange(n, device=wcos.device)
+    lo = torch.where(nonzero, k, n).amin(1)
+    hi = torch.where(nonzero, k + 1, 0).amax(1)
+    empty = lo >= hi
+    return torch.stack((lo.masked_fill(empty, 0), hi.masked_fill(empty, 0)), 1)
+
+
+def kchunk_ranges(wcos, wsin):
+    """The group ranges of :func:`kchunk_ranges_plain` as K6's pre-pass finds
+    them on the card, from the bank in the storage type of the precision
+    mode (an inspection: the count of launches is not touched)."""
+    if not _on_card(wcos):
+        return kchunk_ranges_plain(wcos, wsin)
+    _check_cuda(wcos)
+    dev = wcos.device
+    wc = _operand(wcos, "wcos", 2, dev)
+    ws = _operand(wsin, "wsin", 2, dev)
+    f, n = wc.shape
+    if ws.shape != wc.shape or f > KCHUNK_MAX_F:
+        raise ValueError(f"banks {tuple(wc.shape)}, {tuple(ws.shape)}: equal shapes of "
+                         f"at most {KCHUNK_MAX_F} bins")
+    nbytes = kchunk_workspace_bytes(1, f, n, 1, 1, wc.dtype)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        _run("nnaudio_kchunk_ranges", wc.data_ptr(), ws.data_ptr(), work.data_ptr(),
+             nbytes, f, n, int(wc.dtype == torch.bfloat16), KCHUNK_GROUP, _stream())
+    groups = _ceil_div(f, KCHUNK_GROUP)
+    at = KCHUNK_GROUP_RANGES
+    return work[at:at + 8 * groups].view(torch.int32).reshape(groups, 2).long()
+
+
+def framed_magnitude_banded_3xtf32_plain(x, wcos, wsin, hop, eps=0.0, square=False,
+                                         group: int = KCHUNK_GROUP):
+    """K6 as the kernel computes it in fp32 storage: both operands split by
+    :func:`tf32_split`; per bin and K chunk of ``KCHUNK_BK[float32]``
+    samples ``lo*hi + hi*lo``, then ``hi*hi``, summed from zero, only for
+    the chunks that meet the range of the bin's group
+    (:func:`kchunk_ranges_plain`, rounded out to whole chunks: a chunk
+    outside it is never multiplied, so a non-finite sample there does not
+    reach the output); the chunk sums added, then the epilogue."""
+    bk = KCHUNK_BK[torch.float32]
+    f, n = wcos.shape
+    chunks = _ceil_div(n, bk)
+    pad = chunks * bk - n
+    frames = F.pad(frame_signal(x.float(), n, hop), (0, pad))
+    b, t = frames.shape[:2]
+    x_hi, x_lo = (a.reshape(b, t, chunks, bk) for a in tf32_split(frames))
+    ranges = kchunk_ranges_plain(wcos, wsin, group)
+    c = torch.arange(chunks, device=x.device)
+    lo = torch.div(ranges[:, 0], bk, rounding_mode="floor")
+    hi = torch.div(ranges[:, 1] + bk - 1, bk, rounding_mode="floor")
+    inside = ((c >= lo[:, None]) & (c < hi[:, None])).repeat_interleave(group, 0)[:f]
+
+    def product(w):
+        w_hi, w_lo = (a.reshape(f, chunks, bk) for a in tf32_split(F.pad(w.float(), (0, pad))))
+        small = (torch.einsum("fck,btck->bftc", w_lo, x_hi)
+                 + torch.einsum("fck,btck->bftc", w_hi, x_lo))
+        parts = small + torch.einsum("fck,btck->bftc", w_hi, x_hi)
+        return torch.where(inside[:, None, :], parts, parts.new_zeros(())).sum(-1)
+
+    return pair_magnitude(product(wcos), product(wsin), eps, square)
 
 
 def _launch_magnitude_kchunk(x, wcos, wsin, hop, eps, square, splits=None):
@@ -467,18 +567,16 @@ def _launch_magnitude_kchunk(x, wcos, wsin, hop, eps, square, splits=None):
         raise ValueError(
             f"the split-K magnitude kernel takes at most {KCHUNK_MAX_F} bins, "
             f"got {f}")
-    splits, kper = kchunk_plan(b, t, n, splits)
+    splits = kchunk_plan(b, t, n, splits)
+    # the bank's ranges and packed copy, made anew by the kernel's pre-pass,
+    # and the partial (re, im) of every split
+    nbytes = kchunk_workspace_bytes(b, f, n, t, splits, xs.dtype)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=xs.device)
     out = torch.empty((b, f, t), dtype=torch.float32, device=xs.device)
-    # the partial (re, im) of every split; one split needs none
-    work = (torch.empty((2, splits, b, f, t), dtype=torch.float32,
-                        device=xs.device) if splits > 1 else None)
     with torch.cuda.device(xs.device):
         _run("nnaudio_framed_magnitude_kchunk", xs.data_ptr(), wc.data_ptr(),
-             ws.data_ptr(), out.data_ptr(),
-             work[0].data_ptr() if splits > 1 else None,
-             work[1].data_ptr() if splits > 1 else None,
-             *dims, splits, kper, float(eps), int(square),
-             int(xs.dtype == torch.bfloat16), _stream())
+             ws.data_ptr(), out.data_ptr(), work.data_ptr(), nbytes, *dims, splits,
+             float(eps), int(square), int(xs.dtype == torch.bfloat16), _stream())
     LAUNCHES["framed_magnitude_kchunk"] += 1
     return out
 
@@ -642,10 +740,11 @@ def framed_magnitude(x, wcos, wsin, hop, eps=0.0, square=False):
 def framed_magnitude_kchunk(x, wcos, wsin, hop, eps=0.0, square=False,
                             splits=None):
     """K6: the function of K1 for a bank of at most 128 bins and a long
-    contraction, split over K -> (B, F, T) float32. ``splits`` overrides the
-    planned split count (:func:`kchunk_plan`); the result does not depend on
-    it beyond fp32 summation order. A differentiated call takes the pair
-    (K5), as :func:`framed_magnitude` does."""
+    contraction, each bin group multiplied over its own range of columns and
+    split over K -> (B, F, T) float32. ``splits`` overrides the planned
+    split count (:func:`kchunk_plan`); the result does not depend on it
+    beyond fp32 summation order. A differentiated call takes the pair (K5),
+    as :func:`framed_magnitude` does."""
     if not _on_card(x):
         return framed_magnitude_plain(x, wcos, wsin, hop, eps=eps, square=square)
     if _differentiated(x, wcos, wsin):

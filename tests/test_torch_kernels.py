@@ -107,7 +107,7 @@ def test_pair_and_its_backward_match_plain_autograd(cuda, mode, n_fft, hop, f):
     (9000, 5000, 100, 128, 7),
     (30000, 4096, 441, 1, None),
     (4300, 4096, 64, 33, None),     # T below one tile
-    (16384, 8192, 512, 84, 1),      # one split: K1's arithmetic
+    (16384, 8192, 512, 84, 1),      # one split: no second pass
 ])
 def test_kchunk_matches_plain_version_and_k1(cuda, mode, length, n, hop, f, splits):
     g = torch.Generator(device=cuda).manual_seed(3)
@@ -120,12 +120,117 @@ def test_kchunk_matches_plain_version_and_k1(cuda, mode, length, n, hop, f, spli
         k1 = fk.framed_magnitude(x, wc, ws, hop, **kw)
         torch.cuda.synchronize()
         assert rel_err(k6, fk.framed_magnitude_plain(x, wc, ws, hop, **kw)) <= TOL[mode]
-        # K1 sums on the tensor cores, K6 with fp32 FMA, also with one split
+        # K1 and K6 sum in other orders (K6 by bin group and split)
         assert rel_err(k6, k1) <= TOL[mode]
         # no atomics: a second launch gives the same bits
         assert torch.equal(k6, fk.framed_magnitude_kchunk(x, wc, ws, hop, splits=splits, **kw))
     assert fk.LAUNCHES["framed_magnitude_kchunk"] == before["framed_magnitude_kchunk"] + 4
     assert fk.LAUNCHES["framed_magnitude"] == before["framed_magnitude"] + 2
+
+
+def _banded_bank(f, n, cuda, seed, zero_group=None):
+    """A bank shaped like the CQT's: row i nonzero on a centred window that
+    narrows from most of n to a few samples, zero elsewhere; with
+    ``zero_group`` that group of KCHUNK_GROUP rows all zero."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = [torch.randn(f, n, generator=g, device=cuda) * 0.05 for _ in range(2)]
+    half = torch.linspace(0.45 * n, 8, f, device=cuda).long()
+    k = torch.arange(n, device=cuda)
+    inside = (k[None] >= n // 2 - half[:, None]) & (k[None] < n // 2 + half[:, None])
+    if zero_group is not None:
+        rows = slice(zero_group * fk.KCHUNK_GROUP, (zero_group + 1) * fk.KCHUNK_GROUP)
+        inside[rows] = False
+    return [a * inside for a in w]
+
+
+def _k6_bank(case, cuda):
+    """(wcos, wsin) of a banded K6 case."""
+    from nnaudio_tpu_torch.features import CQT1992v2
+
+    kind, f, n = case
+    if kind in ("cqt", "edited"):
+        cqt = CQT1992v2(sr=16000, hop_length=256, fmin=100, n_bins=f, verbose=False,
+                        device=cuda)
+        wc, ws = cqt.cqt_kernels_real.clone(), cqt.cqt_kernels_imag.clone()
+        if kind == "edited":
+            wc[-1, 0] = 0.25  # far outside the top bin's atom
+        return wc, ws
+    return _banded_bank(f, n, cuda, 11, zero_group=1 if kind == "zero group" else None)
+
+
+@pytest.mark.parametrize("case,length,hop", [
+    (("cqt", 36, None), 4096 + 256 * 40, 256),       # a small CQT1992v2 bank
+    (("edited", 36, None), 4096 + 256 * 40, 256),    # one entry set outside the atoms
+    (("zero group", 3 * fk.KCHUNK_GROUP, 4096), 4096 + 256 * 30, 256),  # middle group 0
+    (("cqt", 36, None), 4096 + 441 * 30, 441),       # hop 441
+    (("banded", 40, 1024), 1024 + 3 * 500, 3),       # hop 3
+    (("banded", 84, 5000), 5000 + 100 * 60, 100),    # N not a multiple of a K chunk
+    (("banded", 60, 4093), 4093 + 64 * 50, 64),      # rows off 16 bytes (N % 4 != 0)
+    (("banded", 1, 4096), 4096 + 512 * 20, 512),     # F = 1
+    (("banded", 128, 4096), 4096 + 512 * 20, 512),   # F = 128
+])
+def test_kchunk_on_banded_banks(cuda, mode, case, length, hop):
+    """K6 on banks whose groups have their own ranges: against the plain
+    version and K1, bit-equal twice, its ranges equal the plain ones', and
+    in fp32 storage against the banded 3xTF32 twin."""
+    wc, ws = _k6_bank(case, cuda)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(2, length, generator=g, device=cuda)
+    before = dict(fk.LAUNCHES)
+    for kw in (dict(eps=1e-8), dict(square=True)):
+        k6 = fk.framed_magnitude_kchunk(x, wc, ws, hop, **kw)
+        k1 = fk.framed_magnitude(x, wc, ws, hop, **kw)
+        torch.cuda.synchronize()
+        assert rel_err(k6, fk.framed_magnitude_plain(x, wc, ws, hop, **kw)) <= TOL[mode]
+        assert rel_err(k6, k1) <= TOL[mode]
+        assert torch.equal(k6, fk.framed_magnitude_kchunk(x, wc, ws, hop, **kw))
+        if mode == "highest":
+            twin = fk.framed_magnitude_banded_3xtf32_plain(x, wc, ws, hop, **kw)
+            assert rel_err(k6, twin) <= TOL[mode]
+    assert fk.LAUNCHES["framed_magnitude_kchunk"] == before["framed_magnitude_kchunk"] + 4
+    storage = config.storage_dtype()
+    want = fk.kchunk_ranges_plain(wc.to(storage), ws.to(storage))
+    assert torch.equal(fk.kchunk_ranges(wc, ws).cpu(), want.cpu())
+
+
+def test_kchunk_zero_group_gives_sqrt_eps(cuda):
+    wc, ws = _banded_bank(3 * fk.KCHUNK_GROUP, 4096, cuda, 13, zero_group=1)
+    x = torch.randn(2, 4096 + 256 * 30, device=cuda)
+    rows = slice(fk.KCHUNK_GROUP, 2 * fk.KCHUNK_GROUP)
+    mag = fk.framed_magnitude_kchunk(x, wc, ws, 256, eps=1e-8)
+    power = fk.framed_magnitude_kchunk(x, wc, ws, 256, square=True)
+    assert torch.equal(mag[:, rows], torch.full_like(mag[:, rows], 1e-8).sqrt())
+    assert torch.equal(power[:, rows], torch.zeros_like(power[:, rows]))
+
+
+def test_kchunk_fp32_is_as_accurate_as_the_fp32_product(cuda):
+    """Against the fp64 magnitude, K6 in fp32 storage errs at most 4x as
+    much as the plain fp32 version, on the default CQT1992v2 bank."""
+    from nnaudio_tpu_torch.features import CQT1992v2
+
+    cqt = CQT1992v2(verbose=False, device=cuda)
+    wc, ws = cqt.cqt_kernels_real, cqt.cqt_kernels_imag
+    n = wc.shape[1]
+    x = torch.randn(2, n + 512 * 60, device=cuda)
+    frames = x.double().unfold(-1, n, 512)
+    ref = torch.hypot(torch.einsum("fn,btn->bft", wc.double(), frames),
+                      torch.einsum("fn,btn->bft", ws.double(), frames))
+    config.set_matmul_precision("highest")
+    got = fk.framed_magnitude_kchunk(x, wc, ws, 512)
+    plain = fk.framed_magnitude_plain(x, wc, ws, 512)
+    assert rel_err(got, ref) <= 4 * rel_err(plain, ref)
+
+
+def test_kchunk_skips_samples_outside_every_range(cuda):
+    """The documented difference: a NaN in a sample that meets only bank
+    columns outside every group's range is never multiplied."""
+    wc, ws = _banded_bank(32, 4096, cuda, 14)
+    lo = int(fk.kchunk_ranges_plain(wc, ws)[:, 0].min())
+    assert lo >= 2 * fk.KCHUNK_BK[torch.bfloat16]
+    x = torch.randn(1, 4096 + 512 * 10, device=cuda)
+    x[0, 0] = float("nan")  # column 0 of frame 0 only
+    assert torch.isfinite(fk.framed_magnitude_kchunk(x, wc, ws, 512)).all()
+    assert torch.isnan(fk.framed_magnitude_plain(x, wc, ws, 512)).any()
 
 
 @pytest.mark.parametrize("length,n,hop,f", [

@@ -293,11 +293,11 @@ def test_magnitude_dispatch_routes_agree_on_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("f,n,inside", [
-    (128, 4096, True), (129, 4096, False), (128, 4095, False), (1, 4096, True),
-    (84, 16384, True), (84, 4097, True), (1025, 2048, False), (1025, 16384, False),
+    (128, 2048, True), (129, 2048, False), (128, 2047, False), (1, 2048, True),
+    (84, 16384, True), (84, 2049, True), (1025, 2048, False), (1025, 16384, False),
 ])
 def test_kchunk_envelope(f, n, inside):
-    assert td.KCHUNK_MIN_N == 4096 and fk.KCHUNK_MAX_F == 128
+    assert td.KCHUNK_MIN_N == 2048 and fk.KCHUNK_MAX_F == 128
     assert td.kchunk_envelope(f, n) is inside
 
 
@@ -307,16 +307,21 @@ def test_kchunk_envelope(f, n, inside):
     (1, 1, 20, None), (1, 3, 4096, 1), (2, 9, 4097, 500),
 ])
 def test_kchunk_plan_covers_k_without_an_empty_split(b, t, n, splits):
-    got, kper = fk.kchunk_plan(b, t, n, splits)
-    assert got >= 1 and kper % fk.KCHUNK_BK == 0
-    assert (got - 1) * kper < n <= got * kper
+    """The split count: at least one and at most one per K chunk; planned,
+    a function of the shapes alone that keeps the grid within one wave of
+    KCHUNK_TARGET_BLOCKS and every split KCHUNK_MIN_SPLIT_K samples of K on
+    average; asked for, never more than asked."""
+    got = fk.kchunk_plan(b, t, n, splits)
+    assert 1 <= got <= -(-n // fk.KCHUNK_BK[torch.float32])
+    base = b * -(-t // fk.KCHUNK_BT)
     if splits is None:
-        assert (got, kper) == fk.kchunk_plan(b, t, n)  # the shapes alone decide
-        assert got == 1 or kper >= fk.KCHUNK_MIN_SPLIT_K
+        assert got == fk.kchunk_plan(b, t, n)  # the shapes alone decide
+        assert got == 1 or (n // got >= fk.KCHUNK_MIN_SPLIT_K
+                            and got * base <= fk.KCHUNK_TARGET_BLOCKS)
     else:
         assert got <= splits
-    if b * -(-t // fk.KCHUNK_BT) >= fk.KCHUNK_TARGET_BLOCKS:
-        assert got == 1  # enough blocks already: one split, K1's arithmetic
+    if base >= fk.KCHUNK_TARGET_BLOCKS:
+        assert got == 1  # enough blocks already: one split, no second pass
 
 
 def _tf32_cases():

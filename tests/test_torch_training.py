@@ -190,7 +190,7 @@ def test_route_under_grad_takes_the_pair(kernel_route, monkeypatch, op):
     pair = fk.framed_pair
     monkeypatch.setattr(fk, "framed_pair", lambda *a: pairs.append(1) or pair(*a))
     rng = np.random.RandomState(0)
-    n = 4096 if op == "kchunk" else 256  # K6's envelope: <= 128 bins, N >= 4096
+    n = 4096 if op == "kchunk" else 256  # K6's envelope: <= 128 bins, N >= 2048
     x = torch.from_numpy(rng.randn(1, n + 64 * 7).astype(np.float32))
     wc, ws = (torch.from_numpy(rng.randn(33, n).astype(np.float32) * 0.05)
               for _ in range(2))

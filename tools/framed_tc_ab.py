@@ -59,7 +59,8 @@ def compile_all(sources: dict[str, str], out: Path) -> dict[str, Path]:
         cu = out / f"{len(jobs)}.cu"
         cu.write_text(text)
         lib = cu.with_suffix(".so")
-        jobs[name] = (lib, subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+        jobs[name] = (lib, subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+                                             "-o", str(lib), str(cu)],
                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                             text=True))
     libs = {}
