@@ -23,8 +23,11 @@ Phases:
     equality, in fp32 against fp64 beside the plain fp32 version, and its
     pre-pass's group ranges against the plain ones (``[bank]`` lines); the
     synthesis (K3, on the tensor cores) at (b)'s, (e)'s and (h)'s inverse
-    shapes and hops 160, 441 and 3, twice for bit equality, and in fp32
-    storage against fp64 beside the plain fp32 version's error;
+    shapes, at the collapsed pyramid dual banks of (n) (48 bins, hop 128)
+    and of CQT2010v2() at its defaults (84 x 32386, hop 512), and hops 160,
+    441 and 3, twice for bit equality, and in fp32 storage against fp64
+    beside the plain fp32 version's error; K1/K2/K4/K5 also at the chroma
+    shape (12 rows x 1025 bins);
  4. the slice through the public entry points, with the launch counts set
     to 0 before each path and read after it:
     (a) the flagship SpectrogramClassifier answering 4 requests of
@@ -51,7 +54,24 @@ Phases:
         (the pair, K5, once; no K1, K2, K6 or K3) and its loss and gradients
         against the plain route; the input's gradient through a frozen STFT
         at (b)'s shape (K3 as dx) and a trainable iSTFT's step at (d)'s
-        shape (K3 forward);
+        shape (K3 forward). Then (m) Gammatonegram() and ChromaSTFT() at
+        their defaults in both modes (K2 x1 each) and one SGD step of each
+        with a trainable bank and STFT (K5 x1); (n) the pyramid ``.inverse``
+        of CQT2010v2, VQT(gamma=5) and CQT2010 at sr 22050 / fmin 55 / 48
+        bins / hop 128 on seeded in-band tones (K5 per octave, K3 x1, SNR >
+        40 dB), CQT2010v2 with early downsampling at hop 64 (> 35 dB) and
+        CQT2010v2() at its defaults (K3 at the 84 x 32386 bank, SNR not
+        held); (o) GriffinLimCQT in the families 1992v2, 2010v2 and vqt, 32
+        iterations (K5 x32, or x32 per octave, K3 x33; spectral convergence
+        < 0.2 and within 0.05 of the plain path's); (p) the parallel chain
+        and the fused pyramid, each alone, at (i)'s CQT2010v2() and
+        VQT(gamma=2) against the serial loop, timed beside it (``[ab]``
+        lines); (q) CFP(fs=16000) and Combined_Frequency_Periodicity() on
+        32 x 10 s at 16 kHz (no kernel; a numpy fp64 oracle on one clip,
+        use_mxu_fft against the default path); (r) TimeStretch(1024, 256)
+        at rates 0.8 and 1.25 and PitchShift(n_steps=7) (K5 x1, K3 x1, each
+        kernel stage against its plain version on the path's inputs) on the
+        harmonic batch, and resample 22050 -> 16000 against scipy;
  5. CUDA-event times (median of 15 after warm-up, the host queued ahead of
     the device so that a short kernel's time is the device's) of each kernel,
     its plain version and one PyTorch library call computing the same
@@ -59,13 +79,13 @@ Phases:
     K4 a composite: ``torch.stft`` and the elementwise update; for K6 two
     strided ``F.conv1d`` and ``torch.hypot``; its bound counts the products
     against the bank's nonzero entries), K1 at K6's shapes, and K6 over a
-    range of split counts, K2 also at (c)'s shape, K3 also at (e)'s; the
-    K1 / K6 dispatch swept over B = 1-32 on the CQT banks and dense banks of
-    64-128 bins x 2048-16384 samples (``[sweep]`` lines, with what the
-    dispatch rule loses where it picks the slower kernel);
-    paths (a)-(c), (e)-(i) and the train steps also print one call's device
-    time by kernel under ``torch.profiler``, which fails if it misses a
-    kernel the call launched;
+    range of split counts, K2 also at (c)'s shape, K3 also at (e)'s and at
+    (n)'s default dual bank; the K1 / K6 dispatch swept over B = 1-32 on the
+    CQT banks and dense banks of 64-128 bins x 2048-16384 samples
+    (``[sweep]`` lines, with what the dispatch rule loses where it picks the
+    slower kernel); paths (a)-(c), (e)-(i), (o), (q) and the train steps
+    also print one call's device time by kernel under ``torch.profiler``,
+    which fails if it misses a kernel the call launched;
  6. a ``kernels`` JSON line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
@@ -79,6 +99,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -104,6 +125,15 @@ GL_TOL = {"highest": 5e-4, "default": 3e-2}
 SC_DELTA, SC_CEILING = 0.05, 0.25
 MOM = 0.99 / 1.99  # Griffin_Lim's momentum 0.99 as the loop applies it
 REPS = 15
+# the pyramid inverses' config (tests/test_inverse_cqt.py:176-236): hop 128 is
+# at most half the shortest atom, where the inverse is good
+INV_CFG = dict(sr=22050, fmin=55, n_bins=48, bins_per_octave=12, hop_length=128,
+               earlydownsample=False)
+# the pyramid switches against the serial loop (tests/test_cqt.py:156,
+# tests/test_pyramid_fused.py:84), of max |ref|
+SWITCH_TOL = 2e-5
+# GriffinLimCQT's spectral convergence (tests/test_inverse_cqt.py:274)
+SC_CQT_CEILING = 0.2
 # the device kernel each launch counter stands for, as the profiler names it
 PROFILE_NAMES = {"framed_magnitude": "framed_tc_kernel",
                  "framed_filterbank": "framed_tc_kernel",
@@ -278,6 +308,9 @@ def profile_path(fn):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # let the tracer start before the call: a kernel launched in the
+        # first moments of the trace can be missing from it
+        time.sleep(0.05)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -320,15 +353,52 @@ def interior_snr_db(x, rec, margin=4096) -> float:
     return float(10 * torch.log10(x[:, core].square().sum() / err.square().sum()))
 
 
+def cfp_oracle(x, filters, fr=2, fs=16000, hop=320, window_size=2049, fc=80,
+               tc=1 / 1000, g=(0.24, 0.6, 1), num_per_oct=48):
+    """CFP's Z in numpy fp64, by nnAudio's full-length recursion
+    (tests/test_cfp.py:19-66): the full DFT of the windowed frames, the
+    alternating relu^g / real-DFT layers with index cutoffs, and the
+    triangular log-frequency projections of ``filters.cfp_logfreq_matrices``."""
+    from scipy.signal.windows import blackmanharris
+
+    n = int(fs / fr)
+    h = blackmanharris(window_size)
+    hp = np.zeros(n)
+    hp[(n - window_size) // 2:(n - window_size) // 2 + window_size] = h
+    xp = np.pad(x.astype(np.float64), n // 2)
+    frames = np.stack([xp[t * hop:t * hop + n] for t in range((len(xp) - n) // hop + 1)])
+    tfr0 = np.abs(np.fft.fft(frames * hp, axis=1)) / np.linalg.norm(h)
+    tc_idx, fc_idx = round(fs * tc), round(fc / fr)
+
+    def nl(v, gg, cutoff):
+        v = np.maximum(v, 0.0)
+        v[:, :cutoff] = 0
+        if cutoff > 0:
+            v[:, -cutoff:] = 0
+        return v ** gg
+    spec = np.maximum(tfr0, 0.0) ** g[0]
+    ceps = nl(np.fft.fft(spec, axis=1).real / np.sqrt(n), g[1], tc_idx)
+    spec = nl(np.fft.fft(ceps, axis=1).real / np.sqrt(n), g[2], fc_idx)
+    high_f, high_q = int(round((1 / tc) / fr) + 1), int(round(fs / fc) + 1)
+    f = fs * np.linspace(0, 0.5, n // 2, endpoint=True)[:high_f]
+    q = np.arange(high_q) / float(fs)
+    fm, qm = filters.cfp_logfreq_matrices(f, q, fr, fc, tc, num_per_oct, fs)
+    return (fm @ spec[:, :n // 2][:, :high_f].T) * (qm @ ceps[:, :n // 2][:, :high_q].T)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     from nnaudio_tpu_torch import config
-    from nnaudio_tpu_torch.features import (CQT1992, CQT1992v2, CQT2010v2, Griffin_Lim,
-                                            InverseMelSpectrogram,
-                                            MelSpectrogram, STFT, VQT, iSTFT)
+    from nnaudio_tpu_torch import filters
+    from nnaudio_tpu_torch.features import (CFP, CQT1992, CQT1992v2, CQT2010, CQT2010v2,
+                                            ChromaSTFT, Combined_Frequency_Periodicity,
+                                            Gammatonegram, Griffin_Lim, GriffinLimCQT,
+                                            InverseMelSpectrogram, MelSpectrogram,
+                                            PitchShift, STFT, TimeStretch, VQT, iSTFT,
+                                            phase_vocoder, resample)
     from nnaudio_tpu_torch.models import SpectrogramClassifier
     from nnaudio_tpu_torch.ops import build, dispatch as td, framed_kernels as fk
 
@@ -483,6 +553,7 @@ def main() -> int:
         ("odd L, hop 441", 3, 66151, 2048, 441, 300, 256),
         ("N 250 (rows off 16 bytes)", 2, 3001, 250, 7, 33, 40),
         ("hop 6 (4-byte pieces)", 2, 3002, 250, 6, 33, 64),
+        ("F 1025, M 12 (chroma)", 4, 220500 + 2048, 2048, 512, 1025, 12),
     ]
     carries = {"fp32": torch.float32, "bf16": torch.bfloat16}
     for mode in ("highest", "default"):
@@ -676,22 +747,38 @@ def main() -> int:
 
     # K3 on the tensor cores: against the plain version, twice for bit
     # equality, and in fp32 storage against fp64 beside the plain fp32
-    # version: (label, B, F, T, N, hop); N None takes (h)'s inverse bank
+    # version: (label, B, F, T, N, hop); N a name takes that inverse's dual
+    # bank: (h)'s flat one, (n)'s collapsed pyramid at 48 bins / hop 128,
+    # and the collapsed pyramid of CQT2010v2() at its defaults (84 bins,
+    # hop 512)
     cqt_h = CQT1992v2(sr=22050, fmin=55, n_bins=48, hop_length=128,
                       output_format="Complex", verbose=False, device=dev)
+    c2010_n = CQT2010v2(**INV_CFG, output_format="Complex", verbose=False, device=dev)
+    c2010_d = CQT2010v2(output_format="Complex", verbose=False, device=dev)
+    t0 = time.perf_counter()
+    duals = {"(h)": cqt_h._dual_kernels("librosa", 1e-3),
+             "(n) 48 bins": c2010_n._pyramid_dual_kernels("librosa", 1e-3)[:2]}
+    t1 = time.perf_counter()
+    duals["(n) default"] = c2010_d._pyramid_dual_kernels("librosa", 1e-3)[:2]
+    log(f"[bank] pyramid dual banks built on the host in fp64: CQT2010v2 at 48 bins / "
+        f"hop 128 {tuple(duals['(n) 48 bins'][0].shape)} with (h)'s flat bank in "
+        f"{t1 - t0:.2f} s, CQT2010v2() at its defaults {tuple(duals['(n) default'][0].shape)} "
+        f"in {time.perf_counter() - t1:.2f} s")
     k3_cases = [
         ("slice (b)", 32, 1025, 431, 2048, 512),
         ("(e) 1024/256", 32, 513, 862, 1024, 256),
         ("hop 160", 4, 257, 300, 512, 160),
         ("hop 441", 4, 1025, 150, 2048, 441),
         ("hop 3", 2, 201, 1300, 400, 3),
-        ("(h) inverse", 4, 48, 1723, None, 128),
+        ("(h) inverse", 4, 48, 1723, "(h)", 128),
+        ("(n) pyramid 48", 4, 48, 1723, "(n) 48 bins", 128),
+        ("(n) pyramid 84", 4, 84, 431, "(n) default", 512),
     ]
     for mode in ("highest", "default"):
         config.set_matmul_precision(mode)
         for label, b, f, t, n, hop in k3_cases:
-            if n is None:
-                kc, ks = cqt_h._dual_kernels("librosa", 1e-3)
+            if isinstance(n, str):
+                kc, ks = duals[n]
                 f, n = kc.shape
             else:
                 kc, ks = randn(f, n) / n, randn(f, n) / n
@@ -717,7 +804,7 @@ def main() -> int:
                     max_abs["synthesis_ola"] = max(max_abs["synthesis_ola"],
                                                    float((k3 - plain).abs().max()))
                 del ref
-            log(f"[check] {mode:8s} K3 {label:13s} B={b} F={f} T={t} N={n} hop={hop}: "
+            log(f"[check] {mode:8s} K3 {label:14s} B={b} F={f} T={t} N={n} hop={hop}: "
                 f"vs plain {err:.2e} (tol {TOL[mode]:g}), second launch "
                 f"{'bit-equal' if same else 'DIFFERS'}{extra} {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -780,7 +867,8 @@ def main() -> int:
             if not missing:
                 break
             log(f"[profile] ({key}) attempt {attempt}: launched but not in the "
-                f"profile: {missing}")
+                f"profile: {missing}; the profile holds "
+                + "; ".join(f"{name[:50]} x{n}" for name, (_, n) in kernels.items()))
         if missing:
             fail(f"({key}): the profile misses kernels it launched: {missing}")
         busy = sum(k_ms for k_ms, _ in kernels.values())
@@ -1136,6 +1224,288 @@ def main() -> int:
                lambda: sgd_step(istft_loss, params_i), {"synthesis_ola": 1}, batch * secs)
     del X_d, g_b, xj, target
 
+    # (m) Gammatonegram and ChromaSTFT at their defaults (22.05 kHz, 2048/512,
+    # 64 bins and 12 chroma) on 32 x 10 s: one filterbank launch (K2) each;
+    # then one SGD step of each with a trainable bank and STFT: the pair
+    # (K5) once, no K1, K2 or K6
+    xm = randn(batch, sr_b * secs)
+    frontends = {"Gammatonegram": (Gammatonegram(verbose=False, device=dev),
+                                   Gammatonegram(trainable_bins=True, trainable_STFT=True,
+                                                 verbose=False, device=dev),
+                                   "gammatone_basis", 64),
+                 "ChromaSTFT": (ChromaSTFT(verbose=False, device=dev),
+                                ChromaSTFT(trainable_chroma=True, trainable_STFT=True,
+                                           verbose=False, device=dev),
+                                "chroma_basis", 12)}
+
+    def bank_loss(layer):
+        def loss(p):
+            return ((layer.apply(p, xm).mean(dim=-1) @ p["head"] - y_true) ** 2).mean()
+        return loss
+    for mode in ("highest", "default"):
+        config.set_matmul_precision(mode)
+        for label, (layer, layer_t, basis, rows) in frontends.items():
+            with torch.no_grad():
+                drive(f"(m) {label} {mode}", lambda: layer(xm), (batch, rows, 431),
+                      expect={"framed_filterbank": 1})
+                ms = cuda_ms(lambda: layer(xm))
+            results[f"m_{label}_{mode}_audio_s_per_s"] = batch * secs / (ms / 1e3)
+            log(f"[serve] (m) {label} {mode}: {batch} x {secs} s in {ms:.3f} ms = "
+                f"{batch * secs / (ms / 1e3):.1f} audio-s/s")
+            params_m = {basis: getattr(layer_t, basis), "wsin": layer_t.wsin,
+                        "wcos": layer_t.wcos,
+                        "head": torch.full((rows, 8), 1e-3, device=dev)}
+            loss_m = bank_loss(layer_t)
+            train_path(f"(m) trainable {label} step {mode}", f"m_{label}_train_{mode}",
+                       loss_m, params_m, lambda: sgd_step(loss_m, params_m), one_pair,
+                       batch * secs)
+    config.set_matmul_precision("highest")
+    del xm, frontends
+
+    # (n) the pyramid inverses at INV_CFG on seeded in-band tones: the pair
+    # (K5) once per octave for the Complex forward, one K3 for the collapsed
+    # dual synthesis; the host build of each dual bank is timed apart (it is
+    # cached for the calls after it); then CQT2010v2 with early downsampling
+    # at hop 64, and one .inverse of CQT2010v2() at its defaults, for K3 at
+    # the (84, 32386) bank (its hop 512 undersamples the top octave, so its
+    # SNR is printed, not held)
+    xt = inband_tones(batch, sr_b * secs, sr_b, 0, dev)
+    early_cfg = {**INV_CFG, "hop_length": 64, "earlydownsample": True}
+    inverses = [
+        ("CQT2010v2", c2010_n, 40.0),
+        ("VQT gamma=5", VQT(gamma=5.0, **INV_CFG, output_format="Complex",
+                            verbose=False, device=dev), 40.0),
+        ("CQT2010", CQT2010(**INV_CFG, output_format="Complex", verbose=False,
+                            device=dev), 40.0),
+        ("CQT2010v2 early downsample, hop 64",
+         CQT2010v2(**early_cfg, output_format="Complex", verbose=False, device=dev), 35.0),
+        ("CQT2010v2() defaults, hop 512", c2010_d, None),
+    ]
+    with torch.no_grad(), warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*under-sampled.*")
+        for label, layer, limit in inverses:
+            # phase 3 built the default bank; build it again to time it
+            layer._dual_cache.clear()
+            t0 = time.perf_counter()
+            kc, _, start, hop_top = layer._pyramid_dual_kernels("librosa", 1e-3)
+            build_s = time.perf_counter() - t0
+
+            def inv(layer=layer):
+                return layer.inverse(layer(xt), length=xt.shape[1])
+            (rec,), dt = drive(f"(n) {label} Complex -> inverse", inv, tuple(xt.shape),
+                               tol=1e-3, expect={"framed_pair": layer.n_octaves,
+                                                 "synthesis_ola": 1})
+            snr = interior_snr_db(xt, rec)
+            ms = cuda_ms(inv, reps=5, warmup=1)
+            key = label.split()[0] + ("_early" if "early" in label else "")
+            key += "_default" if limit is None else ""
+            results[f"n_{key}_snr_db"] = snr
+            results[f"n_{key}_audio_s_per_s"] = batch * secs / (ms / 1e3)
+            log(f"[path] (n) {label}: dual bank {tuple(kc.shape)}, synthesis hop "
+                f"{hop_top}, offset {start}, built on the host in {build_s:.2f} s (the "
+                f"first call only); interior SNR {snr:.1f} dB"
+                + (f" (limit > {limit:g} dB)" if limit else " (not held: hop 512 "
+                   "undersamples the top octave)"))
+            log(f"[serve] (n) {label}: forward + inverse of {batch} x {secs} s in "
+                f"{ms:.3f} ms = {batch * secs / (ms / 1e3):.1f} audio-s/s")
+            if limit is not None and not snr > limit:
+                fail(f"(n) {label}: SNR {snr} dB is not above {limit} dB")
+            del rec
+
+    # (o) GriffinLimCQT in the three families at INV_CFG, 32 iterations from a
+    # seeded phase, on each family's magnitude of (n)'s tones: per iteration
+    # one K3 and the re-analysis (the pair once for 1992v2, once per octave
+    # for the pyramids), and one K3 more for the final synthesis
+    n_iter = 32
+    gl_families = [
+        ("1992v2", CQT1992v2(sr=sr_b, fmin=55, n_bins=48, bins_per_octave=12,
+                             hop_length=128, verbose=False, device=dev), {}),
+        ("2010v2", CQT2010v2(**INV_CFG, verbose=False, device=dev),
+         dict(earlydownsample=False)),
+        ("vqt", VQT(gamma=5.0, **INV_CFG, verbose=False, device=dev),
+         dict(earlydownsample=False, gamma=5.0)),
+    ]
+    with torch.no_grad():
+        for family, mag_layer, extra in gl_families:
+            gl_cqt = GriffinLimCQT(sr=sr_b, fmin=55, n_bins=48, bins_per_octave=12,
+                                   hop_length=128, family=family, n_iter=n_iter,
+                                   verbose=False, device=dev, **extra)
+            S = mag_layer(xt)
+            phase = torch.randn(S.shape, generator=gen, device=dev)
+
+            def recover(gl_cqt=gl_cqt, S=S, phase=phase):
+                return gl_cqt(S, rand_phase=phase, length=xt.shape[1])
+            per = 1 if family == "1992v2" else gl_cqt._cqt.n_octaves
+            label = f"(o) GriffinLimCQT {family}, {n_iter} iterations"
+            (audio,), dt, counts = counted(label, recover, tuple(xt.shape),
+                                           {"framed_pair": n_iter * per,
+                                            "synthesis_ola": n_iter + 1})
+            sc = spectral_convergence(mag_layer, audio, S)
+            sc_plain = spectral_convergence(mag_layer, plain_path(recover), S)
+            ms = cuda_ms(recover, reps=3, warmup=1)
+            results[f"o_{family}_spectral_convergence"] = sc
+            results[f"o_{family}_audio_s_per_s"] = batch * secs / (ms / 1e3)
+            log(f"[path] {label}: {dt * 1e3:.1f} ms, launches {counts}; spectral "
+                f"convergence {sc:.4f}, plain path {sc_plain:.4f} (|diff| tol "
+                f"{SC_DELTA}, ceiling {SC_CQT_CEILING})")
+            log(f"[serve] (o) {family}: {batch} x {secs} s in {ms:.3f} ms (CUDA events, "
+                f"median of 3) = {batch * secs / (ms / 1e3):.1f} audio-s/s")
+            if abs(sc - sc_plain) > SC_DELTA or sc > SC_CQT_CEILING:
+                fail(f"{label}: spectral convergence {sc} (plain {sc_plain})")
+            log_profile(f"o, {family}", recover)
+            del audio, S, phase, gl_cqt
+    del xt, gl_families, inverses
+
+    # (p) the pyramid switches at (i)'s CQT2010v2() and VQT(gamma=2), each on
+    # alone: the outputs against the serial loop, and CUDA-event times of
+    # both ([ab] lines; serial, switch, serial). The defaults stay off.
+    xp_ = randn(batch, sr_b * secs)
+    with torch.no_grad():
+        for label, layer in (("CQT2010v2()", c2010), ("VQT(gamma=2)", vqt2)):
+            ref = layer(xp_)
+            for switch, setter, pairs in (
+                    ("use_parallel_chain", config.set_use_parallel_chain, layer.n_octaves),
+                    ("use_fused_pyramid", config.set_use_fused_pyramid, 0)):
+                ms_a = cuda_ms(lambda: layer(xp_))
+                setter(True)
+                try:
+                    (out,), _, counts = counted(
+                        f"(p) {label} {switch}=True", lambda: layer(xp_),
+                        (batch, 84, 431), {"framed_pair": pairs} if pairs else {})
+                    ms_on = cuda_ms(lambda: layer(xp_))
+                finally:
+                    setter(None)
+                ms_b = cuda_ms(lambda: layer(xp_))
+                err = rel_err(out, ref)
+                ms_serial = (ms_a + ms_b) / 2
+                key = f"p_{label.split('(')[0]}_{switch}"
+                results[f"{key}_ms"], results[f"{key}_serial_ms"] = ms_on, ms_serial
+                log(f"[ab] (p) {label} {switch}=True: {ms_on:.3f} ms against the serial "
+                    f"loop's {ms_a:.3f} / {ms_b:.3f} ms (before / after) = "
+                    f"{ms_serial / ms_on:.2f}x; launches {counts}; max err vs the serial "
+                    f"loop {err:.2e} of max|ref| (tol {SWITCH_TOL:g})")
+                if err > SWITCH_TOL:
+                    fail(f"(p) {label} {switch}: output differs from the serial loop")
+                del out
+            del ref
+    del xp_
+
+    # (q) CFP(fs=16000) and Combined_Frequency_Periodicity() on 32 x 10 s at
+    # 16 kHz: no kernel of the port (cuFFT and matmuls); against a numpy fp64
+    # oracle on one clip (tests/test_cfp.py:75), and use_mxu_fft=True against
+    # the default path (tests/test_mxu_fft.py:75)
+    xq = randn(batch, 16000 * secs)
+    cfp = CFP(fs=16000, device=dev)
+    cfp_full = Combined_Frequency_Periodicity(device=dev)
+    x1s = np.random.RandomState(2).randn(16000).astype(np.float32)
+    with torch.no_grad():
+        z1 = cfp(x1s[None]).cpu().numpy()[0]
+        z_ref = cfp_oracle(x1s, filters)
+        ok = z1.shape == z_ref.shape and np.allclose(z1, z_ref, rtol=1e-2, atol=1e-4)
+        log(f"[oracle] CFP Z on one 1 s clip vs numpy fp64: max abs err "
+            f"{float(np.abs(z1 - z_ref).max()):.2e} (rtol 1e-2, atol 1e-4) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("CFP disagrees with the numpy fp64 oracle")
+        n_log = cfp.freq2logfreq_matrix.shape[0]
+        t_q = xq.shape[1] // cfp.hop_length + 1
+        for label, layer, fn, shape in (
+                ("CFP", cfp, lambda: cfp(xq), (batch, n_log, t_q)),
+                ("Combined_Frequency_Periodicity", cfp_full,
+                 lambda: list(cfp_full(xq)), (batch, n_log, t_q - 2))):
+            outs, dt, _ = counted(f"(q) {label}", fn, shape, {})
+            ms = cuda_ms(fn, reps=5, warmup=1)
+            config.set_use_mxu_fft(True)
+            try:
+                fast = fn()
+                ms_mxu = cuda_ms(fn, reps=5, warmup=1)
+            finally:
+                config.set_use_mxu_fft(None)
+            fast = fast if isinstance(fast, list) else [fast]
+            err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+                      for a, b in zip(fast, outs))
+            results[f"q_{label}_audio_s_per_s"] = batch * secs / (ms / 1e3)
+            log(f"[ab] (q) {label} use_mxu_fft=True: {ms_mxu:.3f} ms against "
+                f"torch.fft.rfft's {ms:.3f} ms = {ms / ms_mxu:.2f}x; max err "
+                f"{err:.2e} of max(|ref|, 1) (tol 3e-4)")
+            log(f"[serve] (q) {label}: {batch} x {secs} s at 16 kHz in {ms:.3f} ms = "
+                f"{batch * secs / (ms / 1e3):.1f} audio-s/s")
+            if err > 3e-4:
+                fail(f"(q) {label}: use_mxu_fft disagrees with the default path")
+            log_profile(f"q, {label}", fn)
+            del outs, fast
+    del xq, cfp, cfp_full
+
+    # (r) on a seeded harmonic batch: TimeStretch(1024, 256) at rates 0.8 and
+    # 1.25 and PitchShift(n_steps=7) (the pair, K5, once; the synthesis, K3,
+    # once; the phase-locked vocoder between them is a loop over output steps
+    # issued by the host), and resample 22050 -> 16000 against scipy. The
+    # kernels are held stage by stage against their plain versions on the
+    # path's inputs: the STFT's Complex output (K5), then the iSTFT (K3) of
+    # the vocoder's output. The vocoder runs the same PyTorch code on both
+    # paths; it accumulates phase in fp32 over ~1,000 steps, to ~1e5 rad at
+    # the bins that carry the sweeps, where one fp32 ulp is ~1e-2 rad, so the
+    # end-to-end difference between the paths is printed, not held
+    from scipy import signal as sps
+
+    xr = harmonic_batch(batch, sr_b * secs, sr_b, 1, dev)
+    ts = TimeStretch(n_fft=1024, hop_length=256, device=dev)
+    ps = PitchShift(sr=sr_b, n_fft=1024, hop_length=256, device=dev)
+    shift = 2.0 ** (-7 / 12)  # PitchShift(7)'s stretch rate
+    stretch = {"TimeStretch rate 0.8": 0.8, "TimeStretch rate 1.25": 1.25,
+               "PitchShift n_steps=7": shift}
+    with torch.no_grad():
+        X_k = ts._stft(xr)
+        X_p = plain_path(lambda: ts._stft(xr))
+        e5 = rel_err(X_k, X_p)
+        for label, fn, shape, expect in (
+                ("TimeStretch rate 0.8", lambda: ts(xr, rate=0.8),
+                 (batch, round(xr.shape[1] / 0.8)), {"framed_pair": 1, "synthesis_ola": 1}),
+                ("TimeStretch rate 1.25", lambda: ts(xr, rate=1.25),
+                 (batch, round(xr.shape[1] / 1.25)), {"framed_pair": 1, "synthesis_ola": 1}),
+                ("PitchShift n_steps=7", lambda: ps(xr, n_steps=7), tuple(xr.shape),
+                 {"framed_pair": 1, "synthesis_ola": 1}),
+                ("resample 22050 -> 16000", lambda: resample(xr, sr_b, 16000),
+                 (batch, 160000), {})):
+            (y,), dt, counts = counted(f"(r) {label}", fn, shape, expect)
+            ref = plain_path(fn)
+            l2 = float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref))
+            ms = cuda_ms(fn, reps=3, warmup=1)
+            key = label.split()[0] + "_" + label.split()[-1]
+            results[f"r_{key}_audio_s_per_s"] = batch * secs / (ms / 1e3)
+            stage = ""
+            if label in stretch:
+                rate = stretch[label]
+                Y = phase_vocoder(X_k, rate, ts.hop)
+                length = int(round(xr.shape[1] / rate))
+                e3 = rel_err(ts._istft(Y, onesided=True, length=length),
+                             plain_path(lambda: ts._istft(Y, onesided=True, length=length)))
+                stage = (f"; stages against their plain versions: the STFT's Complex "
+                         f"output (K5) {e5:.2e}, the iSTFT of the vocoder's output (K3) "
+                         f"{e3:.2e} (tol {TOL['highest']:g})")
+                if max(e5, e3) > TOL["highest"]:
+                    fail(f"(r) {label}: a kernel stage disagrees with its plain version")
+                del Y
+            held = ("held at 1e-6: no kernel" if label.startswith("resample") else
+                    "printed, not held: the vocoder's fp32 phases")
+            log(f"[path] (r) {label}: {dt * 1e3:.1f} ms, launches {counts}{stage}; "
+                f"end to end against the plain path {l2:.2e} relative L2 ({held})")
+            log(f"[serve] (r) {label}: {batch} x {secs} s in {ms:.3f} ms (CUDA events, "
+                f"median of 3) = {batch * secs / (ms / 1e3):.1f} audio-s/s")
+            if label.startswith("resample"):
+                if l2 > 1e-6:
+                    fail("(r) resample differs between the kernel and the plain path")
+                want = sps.resample_poly(xr[0].double().cpu().numpy(), 320, 441,
+                                         window=("kaiser", 5.0))
+                e = float(np.abs(y[0].cpu().numpy() - want).max() / np.abs(want).max())
+                log(f"[oracle] (r) resample 22050 -> 16000, one clip, vs "
+                    f"scipy.signal.resample_poly: {e:.2e} of max|ref| (tol 2e-6)")
+                if e > 2e-6:
+                    fail("(r) resample disagrees with scipy.signal.resample_poly")
+            del y, ref
+        del X_k, X_p
+    del xr, ts, ps
+
     for k, v in launches.items():
         if v <= 0:
             fail(f"kernel {k} was not launched on the slice's path")
@@ -1205,8 +1575,11 @@ def main() -> int:
                 out_len = kc.shape[1] + hop * (sre.shape[-1] - 1)
                 return F.fold(fr, output_size=(1, out_len), kernel_size=(1, kc.shape[1]),
                               stride=(1, hop))
+            # and at (n)'s collapsed dual bank of CQT2010v2() at its defaults
             for key, (kc, ks), hop, t3 in (("synthesis_ola", (wc / n, ws / n), 512, t),
-                                           ("synthesis_ola (e)", (wc2 / n2, ws2 / n2), 256, 862)):
+                                           ("synthesis_ola (e)", (wc2 / n2, ws2 / n2), 256, 862),
+                                           ("synthesis_ola (n) pyramid", duals["(n) default"],
+                                            512, 431)):
                 f3, n3 = kc.shape
                 sre, sim = randn(batch, f3, t3), randn(batch, f3, t3)
                 args = (sre, sim, kc, ks, hop)

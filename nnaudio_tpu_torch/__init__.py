@@ -10,14 +10,16 @@ unless the caller passes ``device="cpu"``. This package never imports JAX or
 __version__ = "0.1.0"
 
 from . import config
-from .config import (fast_mode, set_matmul_precision, set_use_kernels,
-                     set_use_kernels_analysis, set_use_kernels_synthesis,
+from .config import (fast_mode, set_matmul_precision, set_use_fused_pyramid,
+                     set_use_kernels, set_use_kernels_analysis,
+                     set_use_kernels_synthesis, set_use_mxu_fft,
                      set_use_pallas, set_use_pallas_analysis,
-                     set_use_pallas_synthesis)
+                     set_use_pallas_synthesis, set_use_parallel_chain)
 from . import features, interop, models
 
 __all__ = ["config", "features", "interop", "models", "fast_mode",
            "set_matmul_precision", "set_use_kernels",
            "set_use_kernels_analysis", "set_use_kernels_synthesis",
            "set_use_pallas", "set_use_pallas_analysis",
-           "set_use_pallas_synthesis"]
+           "set_use_pallas_synthesis", "set_use_fused_pyramid",
+           "set_use_mxu_fft", "set_use_parallel_chain"]

@@ -2,9 +2,10 @@
 
 Mirrors ``nnaudio_tpu.config``: the same precision modes and kernel
 switches, with the Pallas switches renamed to the port's hand-written
-kernels. The fused-pyramid, MXU-FFT and parallel-chain switches come with
-the modules that read them (``ops/pyramid``, the parallel chain, CFP); the
-CQT/VQT pyramid runs its serial chain and per-octave loop.
+kernels, and the fused-pyramid, MXU-FFT and parallel-chain switches that
+``ops/pyramid``, the CQT/VQT pyramid's decimation chain and CFP read. Those
+three are ``None`` (auto) by default, and auto means off until an H100 A/B
+says otherwise; ``True`` and ``False`` force them.
 
 - ``highest``: fp32 operands, fp32 accumulation (TF32 off for plain matmuls).
 - ``default`` (``fast_mode()``): bf16 operand storage, fp32 accumulation.
@@ -44,6 +45,19 @@ class _Config:
     # Synthesis + overlap-add kernel (iSTFT). None = auto = the kernel for
     # CUDA tensors. False selects the plain version.
     use_kernels_synthesis: bool | None = None
+    # CQT2010 / CQT2010v2 / VQT: every octave's projections in one batched
+    # matmul (ops/pyramid.py) instead of the per-octave loop. None = auto =
+    # off until an H100 A/B (chip_smoke.py path (p)); True forces it on.
+    use_fused_pyramid: bool | None = None
+    # CFP's interior real FFTs as matmul stages (ops/mxu_fft.py) instead of
+    # torch.fft.rfft. None = auto = off until an H100 A/B; True forces it on.
+    use_mxu_fft: bool | None = None
+    # The pyramid's decimation chain with every level computed from the
+    # top-rate signal through a composed cascade filter
+    # (core/resample.compose_cascade) instead of the serial lowpass +
+    # decimate per octave. None = auto = off until an H100 A/B (chip_smoke.py
+    # path (p)); True forces it on.
+    use_parallel_chain: bool | None = None
 
 
 _config = _Config()
@@ -69,6 +83,23 @@ def set_use_kernels_analysis(flag: bool | None) -> None:
 
 def set_use_kernels_synthesis(flag: bool | None) -> None:
     _config.use_kernels_synthesis = flag if flag is None else bool(flag)
+
+
+def set_use_fused_pyramid(flag: bool | None) -> None:
+    _config.use_fused_pyramid = flag if flag is None else bool(flag)
+
+
+def set_use_mxu_fft(flag: bool | None) -> None:
+    _config.use_mxu_fft = flag if flag is None else bool(flag)
+
+
+def set_use_parallel_chain(flag: bool | None) -> None:
+    _config.use_parallel_chain = flag if flag is None else bool(flag)
+
+
+def parallel_chain_enabled() -> bool:
+    """Whether the pyramid takes the parallel decimation chain (auto: off)."""
+    return bool(_config.use_parallel_chain)
 
 
 # the JAX package's names for the kernel switches

@@ -20,7 +20,8 @@ from .overlap import (
     normalize_by_window_envelope,
     window_sumsquare,
 )
-from .resample import downsample_by_2, downsample_by_n
+from .resample import (compose_cascade, downsample_by_2, downsample_by_n,
+                       resample_poly)
 
 __all__ = [
     "broadcast_dim",
@@ -35,6 +36,8 @@ __all__ = [
     "phase_atan",
     "phase_unit_stack",
     "project",
+    "compose_cascade",
+    "resample_poly",
     "downsample_by_2",
     "downsample_by_n",
     "extend_fbins",

@@ -45,10 +45,11 @@
 //   without each part), so they run three steps ahead and move 16 bytes a
 //   copy.
 // - Precision by storage type, as in framed_tc.cu: fp32 storage takes
-//   3xTF32, each stage's lo*hi, hi*lo, hi*hi summed from zero in the tensor
-//   cores and added to the running sum on the CUDA cores (`wgmma` truncates
-//   its fp32 sum, and K runs to n_chunks * 2F = 8200 at (b)); bf16 storage
-//   one bf16 product, summed in `wgmma`.
+//   3xTF32, each stage's lo*hi, hi*lo, hi*hi summed in the tensor cores and
+//   added to the running sum on the CUDA cores by a compensated sum (`wgmma`
+//   truncates its fp32 sum, and K runs to n_chunks * 2F = 8200 at (b); a
+//   plain fp32 running sum of 1876 steps at hop 3 lost 3-5x the plain
+//   version's accuracy); bf16 storage one bf16 product, summed in `wgmma`.
 // - A block skips the chunks c whose frames miss its rows or whose first
 //   kernel sample lies past N, and a warpgroup whose 64 columns all lie at
 //   or past hop multiplies nothing. The epilogue stores p < hop and
@@ -178,14 +179,19 @@ __device__ __forceinline__ void transpose_spectra(const unsigned char* slot,
 
 // One step of one warpgroup: acc += A (64 columns x BK bins) * B^T.
 // fp32, 3xTF32: A split in registers, B by the loader; lo*hi, hi*lo, then
-// hi*hi summed from zero in `part`, then added to acc on the CUDA cores.
+// hi*hi summed in the tensor cores into `part`, then added to acc on the
+// CUDA cores by a compensated (Kahan) sum. `part` enters holding minus the
+// rounding error of the previous add and leaves holding this add's, so the
+// compensation costs no register: the running sum of a small hop, 2 x
+// ceil(N/hop) x Fp/32 steps long (1876 at N = 400, hop 3, F = 201), keeps
+// fp32 accuracy, as the plain version's does.
 template <int BT>
 __device__ __forceinline__ void consume_step(const float*, uint32_t stage,
                                              uint32_t lane_row, uint32_t lane_swz,
-                                             uint32_t lane_h, float (&acc)[BT / 2]) {
+                                             uint32_t lane_h, float (&acc)[BT / 2],
+                                             float (&part)[BT / 2]) {
   const uint64_t x_hi = tile_descriptor(stage + TILE_BYTES);
   const uint64_t x_lo = tile_descriptor(stage + 2 * TILE_BYTES);
-  float part[BT / 2];
   uint32_t hi[4][4], lo[4][4];
   load_a(stage + lane_row, lane_swz, lane_h, hi);
 #pragma unroll
@@ -201,7 +207,7 @@ __device__ __forceinline__ void consume_step(const float*, uint32_t stage,
   fence_registers(lo);
   wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) Mma<float, BT>::run(part, lo[ks], x_hi + 2 * ks, ks > 0);
+  for (int ks = 0; ks < 4; ++ks) Mma<float, BT>::run(part, lo[ks], x_hi + 2 * ks, 1);
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) Mma<float, BT>::run(part, hi[ks], x_lo + 2 * ks, 1);
 #pragma unroll
@@ -212,13 +218,19 @@ __device__ __forceinline__ void consume_step(const float*, uint32_t stage,
   fence_registers(hi);
   fence_registers(lo);
 #pragma unroll
-  for (int i = 0; i < BT / 2; ++i) acc[i] += part[i];
+  for (int i = 0; i < BT / 2; ++i) {
+    const float y = part[i];
+    const float t = acc[i] + y;
+    part[i] = y - (t - acc[i]);
+    acc[i] = t;
+  }
 }
 // bf16: one product, summed in `wgmma`.
 template <int BT>
 __device__ __forceinline__ void consume_step(const __nv_bfloat16*, uint32_t stage,
                                              uint32_t lane_row, uint32_t lane_swz,
-                                             uint32_t lane_h, float (&acc)[BT / 2]) {
+                                             uint32_t lane_h, float (&acc)[BT / 2],
+                                             float (&)[BT / 2]) {
   const uint64_t x = tile_descriptor(stage + TILE_BYTES);
   uint32_t a[4][4];
   load_a(stage + lane_row, lane_swz, lane_h, a);
@@ -321,9 +333,10 @@ __global__ void __launch_bounds__(NT, 1) synthesis_tc_kernel(
   // the A row whose address this lane gives `ldmatrix` (see load_a)
   const uint32_t lane_row = (64 * wg + 16 * warp + lane % 8 + 8 * ((lane / 8) % 2)) * ROW_BYTES;
   const uint32_t lane_swz = lane % 8, lane_h = lane / 16;
-  float acc[BT / 2];
+  // bf16 sums in `wgmma` and leaves `part` alone (the compiler drops it)
+  float acc[BT / 2], part[BT / 2];
 #pragma unroll
-  for (int i = 0; i < BT / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < BT / 2; ++i) acc[i] = part[i] = 0.f;
   for (int i = 0; i < steps; ++i) {
     const int s = i % STAGES;
     mbar_wait(full + 8 * s, (i / STAGES) & 1);
@@ -331,7 +344,7 @@ __global__ void __launch_bounds__(NT, 1) synthesis_tc_kernel(
     // tensor cores through the async proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     consume_step<BT>(static_cast<const S*>(nullptr), smem_addr + s * STAGE_BYTES,
-                     lane_row, lane_swz, lane_h, acc);
+                     lane_row, lane_swz, lane_h, acc, part);
     mbar_arrive(empty + 8 * s);
   }
 
@@ -344,7 +357,8 @@ __global__ void __launch_bounds__(NT, 1) synthesis_tc_kernel(
     const int p = p_thread + 8 * ((i / 2) % 2);
     const long long r = r0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
     const long long s = r * hop + p;
-    if (p < hop && s < length) yb[s] = acc[i];
+    // fp32: the sum plus its last compensation; bf16: part is 0
+    if (p < hop && s < length) yb[s] = acc[i] + part[i];
   }
 }
 

@@ -17,10 +17,14 @@ Conventions kept from the JAX package (and nnAudio):
 - ``normalization_type`` in {librosa, convolutional, wrap} on every variant.
 - Magnitude adds 1e-8 under the sqrt only when trainable.
 
-The flat (single-rate) classes have an approximate ``.inverse`` through
-canonical-dual synthesis kernels and ``synthesis_ola`` (K3). The pyramid
-inverses, the fused pyramid and the parallel decimation chain are not ported
-yet.
+The pyramid has two switches of the JAX package (``config``): the fused
+pyramid (``ops/pyramid``, every octave in one batched matmul) and the
+parallel decimation chain (every level from the top-rate signal through a
+composed cascade filter). Both are off by default.
+
+Every class has an approximate ``.inverse`` through canonical-dual
+synthesis kernels and ``synthesis_ola`` (K3); the pyramid's collapses the
+whole multirate analysis into one single-rate dual bank.
 """
 from __future__ import annotations
 
@@ -32,11 +36,13 @@ import torch.nn.functional as F
 
 from ..core.apply import complex_bank_mul, phase_unit_stack
 from ..core.frame import broadcast_dim, pad_signal
-from ..core.resample import downsample_by_n
+from ..config import parallel_chain_enabled
+from ..core.resample import compose_cascade, compose_cascade_torch, downsample_by_n
 from ..filters.cqt import create_cqt_kernels, create_lowpass_filter, early_downsample_params
 from ..filters.fourier import create_fourier_basis
 from ..ops.dispatch import (framed_basis_pair, framed_complex, framed_magnitude,
                             synthesis_ola)
+from ..ops.pyramid import pyramid_basis_pair, pyramid_enabled
 from .base import SpectralTransform, to_float32
 
 
@@ -502,9 +508,25 @@ class CQT(CQT1992v2):
 
 
 class _PyramidCQT(_CQTCall, SpectralTransform):
-    """Shared init machinery and decimation chain of the 2010 multi-octave
-    pyramid: octave count, top-octave band placement, early-downsample
-    calculus, lowpass FIR, per-bin lengths."""
+    """Shared init machinery, decimation chain and inverse of the 2010
+    multi-octave pyramid: octave count, top-octave band placement,
+    early-downsample calculus, lowpass FIR, per-bin lengths.
+
+    Subclasses provide ``_octave_cqt(params, x, hop, octave)`` (one octave's
+    pair), ``_fused_banks(params)`` (the per-octave banks, center pads and
+    the sign of the imaginary part for the fused pyramid, or ``None``) and
+    ``_inverse_atoms()`` (the per-level complex analysis atoms)."""
+
+    def __init__(self, device=None):
+        super().__init__(device)
+        #: the parallel chain's composed cascade filters, a pure function of
+        #: ``lowpass_filter`` rebuilt in fp64 whenever it changes (never in
+        #: the state), keyed on the filter's version and device
+        self._cascades: dict[int, torch.Tensor] = {}
+        self._cascade_key = None
+        #: the pyramid inverse's dual synthesis banks, cached until a tensor
+        #: changes (their key holds every tensor's version)
+        self._dual_cache: dict = {}
 
     def _init_pyramid(
         self,
@@ -523,6 +545,7 @@ class _PyramidCQT(_CQTCall, SpectralTransform):
             band_center=0.5, kernel_length=256, transition_bandwidth=0.001
         )
         self._register("lowpass_filter", lowpass)
+        self._lowpass_pad = (lowpass.shape[-1] - 1) // 2
 
         n_filters = min(bins_per_octave, n_bins)
         self.n_octaves = int(np.ceil(float(n_bins) / bins_per_octave))
@@ -576,6 +599,28 @@ class _PyramidCQT(_CQTCall, SpectralTransform):
         # filters, which are a function of lowpass_filter
         return key.startswith("lowpass_cascade_")
 
+    def _refresh_derived(self, changed):
+        # the caches key on the tensors' versions, which every persistent
+        # change bumps; drop the dual banks of the old values
+        self._dual_cache.clear()
+
+    def _cascade(self, params, k: int) -> torch.Tensor:
+        """The composed filter of ``k`` chain stages: fp64-built from the
+        stored ``lowpass_filter`` (rebuilt when it changed, also in place),
+        or composed in torch from a filter passed to ``apply``, so that
+        gradients reach it."""
+        fir = params["lowpass_filter"]
+        if fir is not self.lowpass_filter:
+            return compose_cascade_torch(fir, k)
+        key = (fir._version, str(fir.device))
+        if self._cascade_key != key:
+            h = _np64(fir)
+            self._cascades = {
+                j: to_float32(compose_cascade(h, j), fir.device)
+                for j in range(2, self.n_octaves)}
+            self._cascade_key = key
+        return self._cascades[k]
+
     def _early_downsample(self, params, x):
         x = broadcast_dim(x)
         if self.earlydownsample:
@@ -585,28 +630,109 @@ class _PyramidCQT(_CQTCall, SpectralTransform):
         return x
 
     def _pyramid_chain(self, params, x):
-        """Downsampled signal and hop per octave, top octave first: nnAudio's
-        serial per-octave lowpass + decimate."""
+        """Downsampled signal and hop per octave, top octave first. Two
+        implementations of the same sums (``config.use_parallel_chain``):
+        nnAudio's serial lowpass + decimate per octave, or every level
+        computed from ``x`` through a composed cascade filter."""
         hop = self.hop_length
         hops = [hop]
         for _ in range(self.n_octaves - 1):
             hop //= 2
             hops.append(hop)
+        if parallel_chain_enabled() and self.n_octaves > 1:
+            return self._parallel_levels(params, x), hops
         levels, x_down = [x], x
         for _ in range(self.n_octaves - 1):
             x_down = downsample_by_n(x_down, params["lowpass_filter"], 2)
             levels.append(x_down)
         return levels, hops
 
+    # The serial chain zero-pads each stage by p = 127 and truncates each
+    # stage's output to floor(L/2) before the next stage reads it, so the
+    # first and last <= 127 samples of every level are functions of injected
+    # zeros, not of the composed operator on x. The composed products are
+    # exact in the interior; both edges are derived again serially from the
+    # previous corrected level, _EDGE_FIX outputs each.
+    _EDGE_FIX = 192  # > the 127-sample fixed point of the edge recursion
+
+    def _parallel_levels(self, params, x):
+        """Every pyramid level from the top-rate signal: one strided product
+        per level against its composed cascade filter, plus the serial
+        head and tail corrections. Equal to the serial chain up to fp32
+        reassociation."""
+        fir = params["lowpass_filter"]
+        taps = fir.shape[-1]
+        p = self._lowpass_pad
+        e0 = self._EDGE_FIX
+        comp = [x]
+        for k in range(1, self.n_octaves):
+            firk = fir if k == 1 else self._cascade(params, k)
+            comp.append(downsample_by_n(x, firk, 2**k, pad=p * (2**k - 1)))
+        levels = [x]
+        for k in range(1, self.n_octaves):
+            if k == 1:
+                # comp[1] (the base filter, pad p) is the serial stage itself
+                levels.append(comp[1])
+                continue
+            prev, lc = levels[k - 1], comp[k].shape[-1]
+            if lc == 0 or 2 * min(e0, lc) >= lc:
+                # the level lies (nearly) inside the correction window
+                levels.append(downsample_by_n(prev, fir, 2))
+                continue
+            e = min(e0, lc)
+            # head: the standard stage needs only prev's prefix
+            head = downsample_by_n(prev[:, : 2 * (e - 1) + p + 2], fir, 2)[:, :e]
+            # tail: a valid product over prev's suffix, with the serial
+            # chain's zero extension past len(prev) written out
+            start = lc - e
+            a = 2 * start - p
+            need = 2 * (e - 1) + taps
+            w = prev[:, max(a, 0):]
+            lpad = max(0, -a)
+            rpad = need - lpad - w.shape[-1]
+            w = F.pad(w, (lpad, max(rpad, 0)))
+            if rpad < 0:
+                w = w[:, :need]
+            tail = downsample_by_n(w, fir, 2, pad=0)
+            levels.append(torch.cat([head, comp[k][:, e:start], tail], dim=-1))
+        return levels
+
+    def _fused_pyramid(self, params, levels, hops):
+        """Every octave in one batched matmul (``ops/pyramid``), deepest
+        level first as the loop assembles the bins; ``None`` when the switch
+        is off, the class has no fused form or the levels' frame counts
+        disagree."""
+        if not pyramid_enabled():
+            return None
+        fused = self._fused_banks(params)
+        if fused is None:
+            return None
+        banks, negate = fused
+        padded = [_center_pad(lv, pad, self.pad_mode)
+                  for lv, (_, _, pad) in zip(levels, banks)]
+        out = pyramid_basis_pair(padded[::-1], [b[0] for b in banks[::-1]],
+                                 [b[1] for b in banks[::-1]], hops[::-1])
+        if out is None:
+            return None
+        real, imag = out
+        return real, (-imag if negate else imag)
+
+    def _fused_banks(self, params):
+        return None
+
     def _octave_loop(self, params, x):
         """The per-octave transforms stacked along the bin axis, deepest
         octave first, cut to the top ``n_bins``."""
         levels, hops = self._pyramid_chain(params, x)
-        real, imag = self._octave_cqt(params, levels[0], hops[0], 0)
-        for i in range(1, self.n_octaves):
-            r1, i1 = self._octave_cqt(params, levels[i], hops[i], i)
-            real = torch.cat((r1, real), dim=1)
-            imag = torch.cat((i1, imag), dim=1)
+        fused = self._fused_pyramid(params, levels, hops)
+        if fused is not None:
+            real, imag = fused
+        else:
+            real, imag = self._octave_cqt(params, levels[0], hops[0], 0)
+            for i in range(1, self.n_octaves):
+                r1, i1 = self._octave_cqt(params, levels[i], hops[i], i)
+                real = torch.cat((r1, real), dim=1)
+                imag = torch.cat((i1, imag), dim=1)
         return real[:, -self.n_bins:], imag[:, -self.n_bins:]
 
     def _forward_time_domain(self, params, x, output_format, normalization_type):
@@ -626,6 +752,123 @@ class _PyramidCQT(_CQTCall, SpectralTransform):
             real, imag = real * 2, imag * 2
 
         return _cqt_output(real, imag, output_format, trainable=self.trainable)
+
+    # ------------------------------------------------------------ inverse --
+    def _inverse_atoms(self):
+        """Per-level complex analysis atoms ``A`` (``X_level = x_level.A``)
+        and per-level center pads."""
+        raise NotImplementedError
+
+    def _inverse_scale(self, normalization_type):
+        """Per-bin output scale of the forward (fp64 numpy): the CQT2010v2 /
+        VQT convention, the downsample_factor times the normalization's
+        scale. CQT2010 overrides it."""
+        f = float(self.downsample_factor)
+        if normalization_type == "librosa":
+            return f * np.sqrt(_np64(self.lenghts))
+        if normalization_type == "wrap":
+            return np.full(self.n_bins, 2.0 * f)
+        return np.full(self.n_bins, f)
+
+    def _pyramid_dual_kernels(self, normalization_type, band_eta):
+        """Canonical-dual synthesis bank for the whole pyramid, built by
+        collapsing the multirate analysis to a single-rate frame: octave
+        ``j`` analyzes the 2^j-decimated signal at hop ``hop/2^j``, which in
+        original-rate terms is a frame at the original hop whose effective
+        atom is ``H_j * up_{2^j}(A_f)`` (the composed decimation cascade
+        convolved with the zero-stuffed bank atom), shifted by the
+        accumulated pads ``c_j = 2^j P_j + p (2^j - 1)`` (and the early
+        downsampling stage when it is active). One dual construction over
+        the embedded effective bank then inverts every octave at once.
+
+        Returns ``(kc, ks, start, hop_top)``: float32 tensors on the
+        transform's device, the offset of the signal in the synthesis, and
+        the synthesis hop. Built in fp64 on the host and cached until a
+        tensor changes."""
+        from scipy.signal import fftconvolve
+
+        params = self.params
+        key = (normalization_type, band_eta, str(self.device),
+               tuple((k, v._version) for k, v in sorted(params.items())))
+        cached = self._dual_cache.get(key)
+        if cached is not None:
+            return cached
+        level_atoms, level_pads = self._inverse_atoms()
+        lowpass = _np64(params["lowpass_filter"])
+        p = self._lowpass_pad
+        early = self.earlydownsample
+        f_early = int(self.downsample_factor) if early else 1
+        eff, offs = [], []
+        for j in range(self.n_octaves):
+            a = level_atoms[j]
+            if j == 0:
+                e, c = a, int(level_pads[0])
+            else:
+                h = compose_cascade(lowpass, j)
+                up = np.zeros((a.shape[0], (a.shape[1] - 1) * 2 ** j + 1),
+                              np.complex128)
+                up[:, :: 2 ** j] = a
+                e = fftconvolve(up, h[None, :], mode="full", axes=1)
+                c = 2 ** j * int(level_pads[j]) + p * (2 ** j - 1)
+            if early:
+                ef = _np64(params["early_downsample_filter"])
+                up = np.zeros((e.shape[0], (e.shape[1] - 1) * f_early + 1),
+                              np.complex128)
+                up[:, ::f_early] = e
+                e = fftconvolve(up, ef[None, :], mode="full", axes=1)
+                c = f_early * c + (ef.shape[-1] - 1) // 2
+            eff.append(e)
+            offs.append(c)
+        hop_top = self.hop_length * f_early
+        start = max(offs)
+        w_eff = max(start - c + e.shape[1] for e, c in zip(eff, offs))
+        rows = []  # deepest octave first, as the forward stacks its bins
+        for j in reversed(range(self.n_octaves)):
+            full = np.zeros((eff[j].shape[0], w_eff), np.complex128)
+            s0 = start - offs[j]
+            full[:, s0: s0 + eff[j].shape[1]] = eff[j]
+            rows.append(full)
+        atoms = np.concatenate(rows, axis=0)[-self.n_bins:]
+        atoms = atoms * self._inverse_scale(normalization_type)[:, None]
+        kc, ks = _dual_synthesis_bank(atoms, hop_top, band_eta)
+        out = (to_float32(kc, self.device), to_float32(ks, self.device),
+               start, hop_top)
+        self._dual_cache[key] = out
+        return out
+
+    def _inverse_graph(self, X, kc, ks, start, hop_top, length):
+        out = synthesis_ola(X[..., 0], X[..., 1], kc, ks, hop_top)
+        want = hop_top * (X.shape[2] - 1) if length is None else length
+        out = out[:, start: start + want]
+        if out.shape[-1] < want:
+            out = F.pad(out, (0, want - out.shape[-1]))
+        return out
+
+    def inverse(self, X, normalization_type="librosa", length=None,
+                band_eta=1e-3):
+        """Approximate inverse of the multi-octave pyramid.
+
+        Takes ``Complex``-format output ``(B, n_bins, T, 2)`` produced with
+        the same ``normalization_type``. The whole multirate pyramid is
+        collapsed into one single-rate dual synthesis + overlap-add
+        (:meth:`_pyramid_dual_kernels`; the K3 kernel for CUDA tensors); the
+        reconstruction is at the original sample rate also when early
+        downsampling was active (the early FIR is part of the composed
+        atoms). Keep the (post-early-downsample) hop at or below half the
+        shortest atom, or the top octave aliases (a warning fires). Exact in
+        the interior up to the serial chain's edge effects (<= 127 samples
+        per level edge)."""
+        X = self._input(X)
+        if X.ndim != 4 or X.shape[-1] != 2:
+            raise AssertionError(
+                "inverse expects Complex format (batch, n_bins, time, 2)"
+            )
+        _check_norm_type(normalization_type)
+        _warn_undersampled_hop(self.hop_length, _np64(self.lenghts),
+                               "inverse CQT (post early downsampling)")
+        kc, ks, start, hop_top = self._pyramid_dual_kernels(
+            normalization_type, band_eta)
+        return self._inverse_graph(X, kc, ks, start, hop_top, length)
 
 
 class CQT2010(_PyramidCQT):
@@ -721,6 +964,14 @@ class CQT2010(_PyramidCQT):
             params["cqt_kernels_real"], params["cqt_kernels_imag"], fr, fi
         )
 
+    def _fused_banks(self, params):
+        # the composed frozen basis, un-negated; a trainable stage keeps the
+        # two-stage per-octave loop
+        if self.trainable:
+            return None
+        bank = (params["combined_real"], params["combined_imag"], self.n_fft // 2)
+        return [bank] * self.n_octaves, False
+
     def _forward(self, params, x, output_format=None, normalization_type="librosa"):
         output_format = output_format or self.output_format
         _check_norm_type(normalization_type)
@@ -733,6 +984,27 @@ class CQT2010(_PyramidCQT):
             real, imag = real * (2 / self.n_fft), imag * (2 / self.n_fft)
 
         return _cqt_output(real, imag, output_format, trainable=False)
+
+    def _inverse_atoms(self):
+        # the composed frozen basis carries the un-negated convention:
+        # X = x.Cr + i (x.Ci), so the atom is Cr + i Ci
+        params = self.params
+        if "combined_real" not in params:
+            raise NotImplementedError(
+                "CQT2010.inverse needs the frozen composed basis "
+                "(trainable=False)")
+        cr, ci = _np64(params["combined_real"]), _np64(params["combined_imag"])
+        return ([cr + 1j * ci] * self.n_octaves,
+                [self.n_fft // 2] * self.n_octaves)
+
+    def _inverse_scale(self, normalization_type):
+        # nnAudio's conventions for this class: no downsample_factor fold,
+        # and the 1/n_fft Fourier-stage normalization on librosa and wrap
+        if normalization_type == "librosa":
+            return np.sqrt(_np64(self.lenghts)) / self.n_fft
+        if normalization_type == "wrap":
+            return np.full(self.n_bins, 2.0 / self.n_fft)
+        return np.ones(self.n_bins)
 
     def extra_repr(self) -> str:
         return "STFT kernel size = {}, CQT kernel size = {}".format(
@@ -808,9 +1080,21 @@ class CQT2010v2(_PyramidCQT):
         )
         return real, -imag_raw
 
+    def _fused_banks(self, params):
+        bank = (params["cqt_kernels_real"], params["cqt_kernels_imag"],
+                self.n_fft // 2)
+        return [bank] * self.n_octaves, True
+
     def _forward(self, params, x, output_format=None, normalization_type="librosa"):
         return self._forward_time_domain(params, x, output_format,
                                          normalization_type)
+
+    def _inverse_atoms(self):
+        # every octave reuses the shared top-octave bank, and the octave's
+        # product negates the imag: the atom is Kr - i Ki, as in CQT1992v2
+        kr, ki = _np64(self.cqt_kernels_real), _np64(self.cqt_kernels_imag)
+        return ([kr - 1j * ki] * self.n_octaves,
+                [self.n_fft // 2] * self.n_octaves)
 
     def extra_repr(self) -> str:
         return "CQT kernel size = {}, octaves = {}, trainable = {}".format(

@@ -19,7 +19,7 @@ import numpy as np
 
 from ..filters.cqt import create_cqt_kernels
 from ..ops.dispatch import framed_basis_pair
-from .cqt import _PyramidCQT, _center_pad
+from .cqt import _PyramidCQT, _center_pad, _np64
 
 
 class VQT(_PyramidCQT):
@@ -109,9 +109,23 @@ class VQT(_PyramidCQT):
         )
         return real, -imag_raw
 
+    def _fused_banks(self, params):
+        banks = [(params[f"cqt_kernels_real_{i}"], params[f"cqt_kernels_imag_{i}"],
+                  self._octave_widths[i] // 2) for i in range(self.n_octaves)]
+        return banks, True
+
     def _forward(self, params, x, output_format=None, normalization_type="librosa"):
         return self._forward_time_domain(params, x, output_format,
                                          normalization_type)
+
+    def _inverse_atoms(self):
+        # per-octave banks (gamma widens the deep octaves' bandwidths, so
+        # each level has its own kernels and width); the imag is negated at
+        # the product, so the atom is Kr - i Ki per level
+        atoms = [_np64(getattr(self, f"cqt_kernels_real_{i}"))
+                 - 1j * _np64(getattr(self, f"cqt_kernels_imag_{i}"))
+                 for i in range(self.n_octaves)]
+        return atoms, [w // 2 for w in self._octave_widths]
 
     def extra_repr(self) -> str:
         return "VQT octaves = {}, gamma = {}, widths = {}".format(

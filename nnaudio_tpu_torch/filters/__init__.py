@@ -13,6 +13,7 @@ from .mel import (
     mel_frequencies,
     mel_to_hz,
 )
+from .gammatone import gammatone_filterbank, fft_to_gammatone_weights, gammatone_center_freqs
 from .cqt import (
     CQTKernelBank,
     cqt_frequencies,
@@ -22,6 +23,8 @@ from .cqt import (
     early_downsample_params,
     next_pow2_exponent,
 )
+from .cfp import cfp_logfreq_matrices, log_central_freqs
+from .chroma import chroma_filterbank, hz_to_octs
 from .windows import pad_center, window_dispatch
 
 __all__ = [
@@ -34,6 +37,9 @@ __all__ = [
     "mel_filterbank",
     "mel_frequencies",
     "mel_to_hz",
+    "gammatone_filterbank",
+    "fft_to_gammatone_weights",
+    "gammatone_center_freqs",
     "CQTKernelBank",
     "cqt_frequencies",
     "create_cqt_kernels",
@@ -41,6 +47,10 @@ __all__ = [
     "early_downsample_count",
     "early_downsample_params",
     "next_pow2_exponent",
+    "cfp_logfreq_matrices",
+    "log_central_freqs",
+    "chroma_filterbank",
+    "hz_to_octs",
     "pad_center",
     "window_dispatch",
 ]

@@ -11,6 +11,7 @@ from .dispatch import (
     synthesis_ola,
 )
 from .framed_kernels import LAUNCHES, reset_launches
+from .pyramid import materialize_frames, pyramid_basis_pair, pyramid_enabled
 
 __all__ = [
     "framed_basis_pair",
@@ -24,4 +25,7 @@ __all__ = [
     "kchunk_envelope",
     "LAUNCHES",
     "reset_launches",
+    "materialize_frames",
+    "pyramid_basis_pair",
+    "pyramid_enabled",
 ]

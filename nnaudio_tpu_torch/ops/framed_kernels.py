@@ -207,8 +207,10 @@ def synthesis_ola_3xtf32_plain(spec_re, spec_im, kc, ks, hop):
     Re[f, r - c] - ks[f, c*hop + p] * Im[f, r - c]``; the K loop runs over
     the chunks c, then the :data:`SYNTH_BK`-bin chunks of F, then Re and
     -Im. Each step splits both operands by :func:`tf32_split`, sums
-    ``lo*hi + hi*lo``, then ``hi*hi``, in fp32 from zero, and adds that to
-    the running sum (``lo*lo`` is dropped)."""
+    ``lo*hi + hi*lo``, then ``hi*hi``, in fp32 onto the step's partial (which
+    enters holding minus the previous add's rounding error), and adds that to
+    the running sum by a compensated (Kahan) sum (``lo*lo`` is dropped); the
+    result is the sum plus its last compensation."""
     b, f, t = spec_re.shape
     n = kc.shape[1]
     bk = SYNTH_BK[torch.float32]
@@ -222,15 +224,20 @@ def synthesis_ola_3xtf32_plain(spec_re, spec_im, kc, ks, hop):
              for k, s in ((kc, spec_re), (ks, -spec_im))]
     rows = torch.zeros((b, t + n_chunks - 1, hop), dtype=torch.float32,
                        device=spec_re.device)
+    part = torch.zeros_like(rows)
     for c in range(n_chunks):
+        at = slice(c, c + t)
         for f0 in range(0, f + pad_f, bk):
             fs = slice(f0, f0 + bk)
             for w_hi, w_lo, s_hi, s_lo in steps:
                 small = (torch.einsum("fp,bft->btp", w_lo[fs, c], s_hi[:, fs])
                          + torch.einsum("fp,bft->btp", w_hi[fs, c], s_lo[:, fs]))
-                rows[:, c:c + t] += small + torch.einsum(
+                y = part[:, at] + small + torch.einsum(
                     "fp,bft->btp", w_hi[fs, c], s_hi[:, fs])
-    return rows.reshape(b, -1)[:, :n + hop * (t - 1)]
+                total = rows[:, at] + y
+                part[:, at] = y - (total - rows[:, at])
+                rows[:, at] = total
+    return (rows + part).reshape(b, -1)[:, :n + hop * (t - 1)]
 
 
 def gl_update(re, im_raw, S, p_re, p_im, mom):

@@ -484,7 +484,8 @@ SYNTHESIS_CASES = [(2, 65, 9, 2048, 512), (2, 100, 7, 2048, 441), (2, 129, 12, 1
 @pytest.mark.parametrize("b,f,t,n,hop", SYNTHESIS_CASES)
 def test_3xtf32_plain_synthesis_matches_plain_and_jax(b, f, t, n, hop):
     """K3's tensor-core arithmetic in fp32 storage (the split operands, each
-    step of 32 bins summed from zero, then overlap-added in the K loop),
+    step of 32 bins added to the running sum by a compensated sum, the
+    overlap-add inside the K loop),
     repeated in plain PyTorch, against the plain version and the JAX
     package's ``synthesis_ola`` (1e-4), and against fp64 (within 4x the
     plain fp32 version's error)."""

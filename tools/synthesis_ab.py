@@ -2,20 +2,27 @@
 """A/B of builds of ``nnaudio_tpu_torch/csrc/synthesis_ola.cu`` (K3) on one
 NVIDIA GPU.
 
-    python3 tools/synthesis_ab.py
+    python3 tools/synthesis_ab.py [--source OTHER_synthesis_ola.cu ...]
 
 Builds the package's source as it is and changed by text: how many steps of
 spectra the loaders copy ahead (``AHEAD``), the depth of the ring, and three
 diagnostic builds that each leave one part of a step out (the loaders'
 copies, their transpose, or the products) and so compute garbage: the time
-that remains is the time of the other parts. Times K3 at the STFT 2048/512
-shape (B=32, F=1025, T=431) and at mel -> audio's 1024/256 (T=862, F=513) in
-fp32 and bf16 storage with CUDA events, in turns (committed, the others, then
-in reverse), every output of a build that is not diagnostic held bit-equal
-to the committed build's. Needs CUDA and nvcc.
+that remains is the time of the other parts. A ``--source`` file (another
+version of the kernel with the same entry point, e.g. an older commit's) is
+built beside them; its arithmetic may differ, so its outputs are held
+against the committed build's within the kernels' tolerance (1e-4 of max
+|ref| in fp32 storage, 5e-2 in bf16) instead of bit for bit. Times K3 at
+the STFT 2048/512 shape (B=32, F=1025, T=431), at mel -> audio's 1024/256
+(T=862, F=513) and at the pyramid inverse's dual bank of CQT2010v2() at its
+defaults (F=84, N=32386, hop 512, T=431) in fp32 and bf16 storage with CUDA
+events, in turns (committed, the others, then in reverse), every output of a
+build that is not diagnostic held bit-equal to the committed build's. Needs
+CUDA and nvcc.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -89,9 +96,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("synthesis_ab: no CUDA device", file=sys.stderr)
         return 2
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--source", action="append", default=[],
+                        help="another synthesis_ola.cu to time beside the committed one")
+    args = parser.parse_args()
     print(f"[card] {cs.smi()}")
     src = (build.CSRC / "synthesis_ola.cu").read_text()
     builds = variants(src)
+    # (source, diagnostic, held within the tolerance instead of bit for bit)
+    builds = {k: (*v, False) for k, v in builds.items()}
+    builds.update({f"--source {Path(p).name}": (Path(p).read_text(), False, True)
+                   for p in args.source})
     with tempfile.TemporaryDirectory() as tmp:
         libs = compile_all({k: v[0] for k, v in builds.items()}, Path(tmp))
         loaded = {name: ctypes.CDLL(str(lib)) for name, lib in libs.items()}
@@ -104,7 +119,8 @@ def main() -> int:
                     torch.randn(f, n, generator=gen, device=dev) / n,
                     torch.randn(f, n, generator=gen, device=dev) / n)
         cases = {"(b) 2048/512": (inputs(1025, 431, 2048), 512),
-                 "(e) 1024/256": (inputs(513, 862, 1024), 256)}
+                 "(e) 1024/256": (inputs(513, 862, 1024), 256),
+                 "(n) 84x32386/512": (inputs(84, 431, 32386), 512)}
         order = list(loaded) + list(reversed(loaded))
         for mode in ("highest", "default"):
             config.set_matmul_precision(mode)
@@ -119,6 +135,11 @@ def main() -> int:
                     torch.cuda.synchronize()
                     if case not in ref:
                         ref[case] = out.clone()
+                    elif builds[name][2]:
+                        err = cs.rel_err(out, ref[case])
+                        if err > cs.TOL[mode]:
+                            raise SystemExit(f"{name} {case} {mode}: {err:.2e} from the "
+                                             "committed build")
                     elif not builds[name][1] and not torch.equal(ref[case], out):
                         raise SystemExit(f"{name} {case} {mode}: output differs from "
                                          "the committed build")
@@ -126,7 +147,8 @@ def main() -> int:
                 tag = " (diagnostic)" if builds[name][1] else ""
                 print(f"[time] {mode:8s} {name:14s} " + ", ".join(row) + tag, flush=True)
         config.set_matmul_precision("highest")
-    print("[done] the outputs of every build that is not diagnostic bit-equal")
+    print("[done] the outputs of every build that is not diagnostic bit-equal, those of "
+          "--source builds within the tolerance")
     return 0
 
 
