@@ -46,10 +46,14 @@
 //   copy.
 // - Precision by storage type, as in framed_tc.cu: fp32 storage takes
 //   3xTF32, each stage's lo*hi, hi*lo, hi*hi summed in the tensor cores and
-//   added to the running sum on the CUDA cores by a compensated sum (`wgmma`
-//   truncates its fp32 sum, and K runs to n_chunks * 2F = 8200 at (b); a
-//   plain fp32 running sum of 1876 steps at hop 3 lost 3-5x the plain
-//   version's accuracy); bf16 storage one bf16 product, summed in `wgmma`.
+//   added to the running sum on the CUDA cores (`wgmma` truncates its fp32
+//   sum, and K runs to n_chunks * 2F = 8200 at (b)); bf16 storage one bf16
+//   product, summed in `wgmma`. A row's fp32 running sum takes 2 x n_chunks
+//   x Fp/32 steps: up to KAHAN_MIN_STEPS a plain sum matches the plain
+//   version's accuracy (264 at (b)); past it the launcher picks a build
+//   that adds each step by a compensated sum (a plain sum of 1876 steps at
+//   hop 3 lost 3-5x the plain version's accuracy, and the compensation
+//   costs 9-14% at (b)'s and the pyramid dual bank's shapes).
 // - A block skips the chunks c whose frames miss its rows or whose first
 //   kernel sample lies past N, and a warpgroup whose 64 columns all lie at
 //   or past hop multiplies nothing. The epilogue stores p < hop and
@@ -177,15 +181,19 @@ __device__ __forceinline__ void transpose_spectra(const unsigned char* slot,
   }
 }
 
+// Steps of a row's running sum past which fp32 storage takes the
+// compensated sum (ops/framed_kernels.py SYNTH_KAHAN_MIN_STEPS repeats it).
+constexpr int KAHAN_MIN_STEPS = 512;
+
 // One step of one warpgroup: acc += A (64 columns x BK bins) * B^T.
 // fp32, 3xTF32: A split in registers, B by the loader; lo*hi, hi*lo, then
 // hi*hi summed in the tensor cores into `part`, then added to acc on the
-// CUDA cores by a compensated (Kahan) sum. `part` enters holding minus the
-// rounding error of the previous add and leaves holding this add's, so the
-// compensation costs no register: the running sum of a small hop, 2 x
-// ceil(N/hop) x Fp/32 steps long (1876 at N = 400, hop 3, F = 201), keeps
-// fp32 accuracy, as the plain version's does.
-template <int BT>
+// CUDA cores. Plain: `part` is summed from zero. KAHAN: a compensated sum;
+// `part` enters holding minus the rounding error of the previous add and
+// leaves holding this add's, so the compensation costs no register and a
+// long running sum (1876 steps at N = 400, hop 3, F = 201) keeps fp32
+// accuracy, as the plain version's does.
+template <int BT, bool KAHAN>
 __device__ __forceinline__ void consume_step(const float*, uint32_t stage,
                                              uint32_t lane_row, uint32_t lane_swz,
                                              uint32_t lane_h, float (&acc)[BT / 2],
@@ -207,7 +215,7 @@ __device__ __forceinline__ void consume_step(const float*, uint32_t stage,
   fence_registers(lo);
   wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) Mma<float, BT>::run(part, lo[ks], x_hi + 2 * ks, 1);
+  for (int ks = 0; ks < 4; ++ks) Mma<float, BT>::run(part, lo[ks], x_hi + 2 * ks, KAHAN || ks > 0);
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) Mma<float, BT>::run(part, hi[ks], x_lo + 2 * ks, 1);
 #pragma unroll
@@ -217,16 +225,21 @@ __device__ __forceinline__ void consume_step(const float*, uint32_t stage,
   fence_registers(part);
   fence_registers(hi);
   fence_registers(lo);
+  if constexpr (KAHAN) {
 #pragma unroll
-  for (int i = 0; i < BT / 2; ++i) {
-    const float y = part[i];
-    const float t = acc[i] + y;
-    part[i] = y - (t - acc[i]);
-    acc[i] = t;
+    for (int i = 0; i < BT / 2; ++i) {
+      const float y = part[i];
+      const float t = acc[i] + y;
+      part[i] = y - (t - acc[i]);
+      acc[i] = t;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i) acc[i] += part[i];
   }
 }
 // bf16: one product, summed in `wgmma`.
-template <int BT>
+template <int BT, bool KAHAN>
 __device__ __forceinline__ void consume_step(const __nv_bfloat16*, uint32_t stage,
                                              uint32_t lane_row, uint32_t lane_swz,
                                              uint32_t lane_h, float (&acc)[BT / 2],
@@ -247,7 +260,7 @@ __device__ __forceinline__ void consume_step(const __nv_bfloat16*, uint32_t stag
 
 // grid (ceil(R/BT), ceil(hop/128), B), R = T + n_chunks - 1 rows; threads:
 // two multiplying warpgroups, then two loading ones
-template <typename S, int BT>
+template <typename S, int BT, bool KAHAN>
 __global__ void __launch_bounds__(NT, 1) synthesis_tc_kernel(
     const S* __restrict__ sre, const S* __restrict__ sim, float* __restrict__ y,
     int F, int T, int Tp, int N, int hop, int Fp, int length,
@@ -343,8 +356,8 @@ __global__ void __launch_bounds__(NT, 1) synthesis_tc_kernel(
     // the B tile was written through the generic proxy and is read by the
     // tensor cores through the async proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    consume_step<BT>(static_cast<const S*>(nullptr), smem_addr + s * STAGE_BYTES,
-                     lane_row, lane_swz, lane_h, acc, part);
+    consume_step<BT, KAHAN>(static_cast<const S*>(nullptr), smem_addr + s * STAGE_BYTES,
+                            lane_row, lane_swz, lane_h, acc, part);
     mbar_arrive(empty + 8 * s);
   }
 
@@ -357,12 +370,12 @@ __global__ void __launch_bounds__(NT, 1) synthesis_tc_kernel(
     const int p = p_thread + 8 * ((i / 2) % 2);
     const long long r = r0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
     const long long s = r * hop + p;
-    // fp32: the sum plus its last compensation; bf16: part is 0
-    if (p < hop && s < length) yb[s] = acc[i] + part[i];
+    // KAHAN: the sum plus its last compensation
+    if (p < hop && s < length) yb[s] = KAHAN ? acc[i] + part[i] : acc[i];
   }
 }
 
-template <typename S, int BT>
+template <typename S, int BT, bool KAHAN>
 cudaError_t launch_bt(const void* sre, const void* sim, const void* kcT,
                       const void* ksT, void* y, int B, int F, int T, int Tp, int N,
                       int hop, int Fp, cudaStream_t st) {
@@ -372,30 +385,30 @@ cudaError_t launch_bt(const void* sre, const void* sim, const void* kcT,
   if (!tile_map<S>(kcT, N, Fp, &map_kc) || !tile_map<S>(ksT, N, Fp, &map_ks))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      synthesis_tc_kernel<S, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      synthesis_tc_kernel<S, BT, KAHAN>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   const int n_chunks = (N + hop - 1) / hop;
   const int rows = T + n_chunks - 1;
   const int length = N + hop * (T - 1);
   const dim3 grid((rows + BT - 1) / BT, (hop + BP - 1) / BP, B);
-  synthesis_tc_kernel<S, BT><<<grid, NT, SMEM, st>>>(
+  synthesis_tc_kernel<S, BT, KAHAN><<<grid, NT, SMEM, st>>>(
       static_cast<const S*>(sre), static_cast<const S*>(sim), static_cast<float*>(y),
       F, T, Tp, N, hop, Fp, length, map_kc, map_ks);
   return cudaGetLastError();
 }
 
 // The row-tile width that pads the R rows least; the wider of two that tie.
-template <typename S>
+template <typename S, bool KAHAN>
 cudaError_t launch(const void* sre, const void* sim, const void* kcT,
                    const void* ksT, void* y, int B, int F, int T, int Tp, int N,
                    int hop, int Fp, cudaStream_t st) {
   const int rows = T + (N + hop - 1) / hop - 1;
   auto padded = [rows](int bt) { return (rows + bt - 1) / bt * bt; };
   if (padded(128) <= padded(112) && padded(128) <= padded(64))
-    return launch_bt<S, 128>(sre, sim, kcT, ksT, y, B, F, T, Tp, N, hop, Fp, st);
+    return launch_bt<S, 128, KAHAN>(sre, sim, kcT, ksT, y, B, F, T, Tp, N, hop, Fp, st);
   if (padded(112) <= padded(64))
-    return launch_bt<S, 112>(sre, sim, kcT, ksT, y, B, F, T, Tp, N, hop, Fp, st);
-  return launch_bt<S, 64>(sre, sim, kcT, ksT, y, B, F, T, Tp, N, hop, Fp, st);
+    return launch_bt<S, 112, KAHAN>(sre, sim, kcT, ksT, y, B, F, T, Tp, N, hop, Fp, st);
+  return launch_bt<S, 64, KAHAN>(sre, sim, kcT, ksT, y, B, F, T, Tp, N, hop, Fp, st);
 }
 
 }  // namespace
@@ -409,6 +422,10 @@ extern "C" int nnaudio_synthesis_ola(const void* sre, const void* sim,
                                      int Fp, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(sre, sim, kcT, ksT, y, B, F, T, Tp, N, hop, Fp, st);
-  return launch<float>(sre, sim, kcT, ksT, y, B, F, T, Tp, N, hop, Fp, st);
+    return launch<__nv_bfloat16, false>(sre, sim, kcT, ksT, y, B, F, T, Tp, N, hop, Fp, st);
+  // the longest row's running sum: every chunk, Re and -Im, every K chunk
+  const long long steps = 2LL * ((N + hop - 1) / hop) * (Fp / Synth<float>::BK);
+  if (steps > KAHAN_MIN_STEPS)
+    return launch<float, true>(sre, sim, kcT, ksT, y, B, F, T, Tp, N, hop, Fp, st);
+  return launch<float, false>(sre, sim, kcT, ksT, y, B, F, T, Tp, N, hop, Fp, st);
 }

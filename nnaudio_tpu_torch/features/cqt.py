@@ -600,9 +600,11 @@ class _PyramidCQT(_CQTCall, SpectralTransform):
         return key.startswith("lowpass_cascade_")
 
     def _refresh_derived(self, changed):
-        # the caches key on the tensors' versions, which every persistent
-        # change bumps; drop the dual banks of the old values
+        # the caches key on the tensors' versions, which an in-place change
+        # bumps; a tensor replaced by load_state_dict(assign=True) may carry
+        # the old one's version, so drop the duals and cascades of old values
         self._dual_cache.clear()
+        self._cascade_key = None
 
     def _cascade(self, params, k: int) -> torch.Tensor:
         """The composed filter of ``k`` chain stages: fp64-built from the
@@ -612,7 +614,7 @@ class _PyramidCQT(_CQTCall, SpectralTransform):
         fir = params["lowpass_filter"]
         if fir is not self.lowpass_filter:
             return compose_cascade_torch(fir, k)
-        key = (fir._version, str(fir.device))
+        key = (id(fir), fir._version, str(fir.device))
         if self._cascade_key != key:
             h = _np64(fir)
             self._cascades = {

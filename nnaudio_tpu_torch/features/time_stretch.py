@@ -27,9 +27,12 @@ from .base import to_float32
 from .stft import STFT, iSTFT
 
 
-def _as_tensor(x) -> torch.Tensor:
-    """A tensor stays where it is; an array becomes a float32 CPU tensor."""
-    return x if isinstance(x, torch.Tensor) else to_float32(x, "cpu")
+def _as_tensor(x, device) -> torch.Tensor:
+    """A tensor stays on its device unless ``device`` is given; an array goes
+    to ``device``, which ``None`` makes CUDA (and raises without it)."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x
+    return to_float32(x, resolve_device(device))
 
 
 def _nearest_peak_index(mag):
@@ -52,7 +55,8 @@ def _nearest_peak_index(mag):
     return torch.where(d_f <= d_b, fwd.clamp(min=0), bwd.clamp(max=f - 1)), is_peak
 
 
-def phase_vocoder(X, rate: float, hop_length: int, phase_lock: bool = True):
+def phase_vocoder(X, rate: float, hop_length: int, phase_lock: bool = True,
+                  device=None):
     """Stretch a complex STFT in time by ``rate`` without changing pitch.
 
     ``X`` is a ``(B, F, T, 2)`` onesided complex stack (the rfft convention,
@@ -63,12 +67,14 @@ def phase_vocoder(X, rate: float, hop_length: int, phase_lock: bool = True):
     magnitude peaks accumulate phase and every other bin takes its nearest
     peak's phase plus the source frame's offset between the two
     (Laroche-Dolson identity phase locking); without it, the classic
-    vocoder (librosa's ``phase_vocoder``). The result lies on ``X``'s
-    device. Returns the stretched ``(B, F, ceil(T/rate), 2)`` stack:
-    magnitudes interpolated linearly between the two bracketing input frames
-    (past the last one towards zero, as librosa pads), phases advanced by
-    the instantaneous frequency."""
-    X = _as_tensor(X)
+    vocoder (librosa's ``phase_vocoder``). A tensor ``X`` is worked on
+    where it lies; an array goes to ``device`` (``None`` means CUDA; pass
+    ``device="cpu"`` for the CPU). Returns the stretched
+    ``(B, F, ceil(T/rate), 2)`` stack: magnitudes interpolated linearly
+    between the two bracketing input frames (past the last one towards
+    zero, as librosa pads), phases advanced by the instantaneous
+    frequency."""
+    X = _as_tensor(X, device)
     b, f, t = X.shape[0], X.shape[1], X.shape[2]
     n_fft = 2 * (f - 1)
     dev = X.device
@@ -155,14 +161,17 @@ class TimeStretch:
         return out[0] if squeeze else out
 
 
-def resample(x, orig_sr: float, target_sr: float, max_denominator: int = 512):
+def resample(x, orig_sr: float, target_sr: float, max_denominator: int = 512,
+             device=None):
     """Rational-rate resampling, librosa's ``resample`` with
     ``res_type='polyphase'``: one banded framed matmul
     (``core.resample.resample_poly``, equal to ``scipy.signal.resample_poly``
     up to fp32 rounding). The ratio is approximated by a fraction with a
     denominator of at most ``max_denominator`` (exact for rates such as
-    22050 -> 44100 or 44100 -> 48000). Works on the device of ``x``."""
-    x = _as_tensor(x)
+    22050 -> 44100 or 44100 -> 48000). A tensor ``x`` is worked on where it
+    lies; an array goes to ``device`` (``None`` means CUDA; pass
+    ``device="cpu"`` for the CPU)."""
+    x = _as_tensor(x, device)
     squeeze = x.ndim == 1
     if squeeze:
         x = x[None]

@@ -200,17 +200,31 @@ def synthesis_ola_plain(spec_re, spec_im, kc, ks, hop):
 #: and in bf16; the wrapper pads the transposed kernels' rows to a multiple
 SYNTH_BK = {torch.float32: 32, torch.bfloat16: 64}
 
+#: steps of one output row's fp32 running sum in K3 (``2 * ceil(N/hop) *
+#: Fp/32``) past which the kernel adds each step by a compensated sum
+#: (``KAHAN_MIN_STEPS`` in ``csrc/synthesis_ola.cu``)
+SYNTH_KAHAN_MIN_STEPS = 512
+
+
+def synthesis_compensated(f: int, n: int, hop: int) -> bool:
+    """Whether K3 in fp32 storage sums each output row by a compensated sum:
+    its running sum is longer than :data:`SYNTH_KAHAN_MIN_STEPS` steps."""
+    steps = 2 * _ceil_div(n, hop) * _ceil_div(f, SYNTH_BK[torch.float32])
+    return steps > SYNTH_KAHAN_MIN_STEPS
+
 
 def synthesis_ola_3xtf32_plain(spec_re, spec_im, kc, ks, hop):
     """K3 as the tensor-core kernel computes it in fp32 storage. In the row
     view of the signal, ``y[r*hop + p] = sum_c sum_f kc[f, c*hop + p] *
     Re[f, r - c] - ks[f, c*hop + p] * Im[f, r - c]``; the K loop runs over
     the chunks c, then the :data:`SYNTH_BK`-bin chunks of F, then Re and
-    -Im. Each step splits both operands by :func:`tf32_split`, sums
-    ``lo*hi + hi*lo``, then ``hi*hi``, in fp32 onto the step's partial (which
-    enters holding minus the previous add's rounding error), and adds that to
-    the running sum by a compensated (Kahan) sum (``lo*lo`` is dropped); the
-    result is the sum plus its last compensation."""
+    -Im. Each step splits both operands by :func:`tf32_split` and sums
+    ``lo*hi + hi*lo``, then ``hi*hi``, in fp32 (``lo*lo`` is dropped). Where
+    :func:`synthesis_compensated` says so, that sum starts from the step's
+    partial (which enters holding minus the previous add's rounding error)
+    and is added to the running sum by a compensated (Kahan) sum, the result
+    being the sum plus its last compensation; else it starts from zero and
+    is added plainly."""
     b, f, t = spec_re.shape
     n = kc.shape[1]
     bk = SYNTH_BK[torch.float32]
@@ -224,6 +238,7 @@ def synthesis_ola_3xtf32_plain(spec_re, spec_im, kc, ks, hop):
              for k, s in ((kc, spec_re), (ks, -spec_im))]
     rows = torch.zeros((b, t + n_chunks - 1, hop), dtype=torch.float32,
                        device=spec_re.device)
+    kahan = synthesis_compensated(f, n, hop)
     part = torch.zeros_like(rows)
     for c in range(n_chunks):
         at = slice(c, c + t)
@@ -232,8 +247,11 @@ def synthesis_ola_3xtf32_plain(spec_re, spec_im, kc, ks, hop):
             for w_hi, w_lo, s_hi, s_lo in steps:
                 small = (torch.einsum("fp,bft->btp", w_lo[fs, c], s_hi[:, fs])
                          + torch.einsum("fp,bft->btp", w_hi[fs, c], s_lo[:, fs]))
-                y = part[:, at] + small + torch.einsum(
+                y = (part[:, at] + small if kahan else small) + torch.einsum(
                     "fp,bft->btp", w_hi[fs, c], s_hi[:, fs])
+                if not kahan:
+                    rows[:, at] += y
+                    continue
                 total = rows[:, at] + y
                 part[:, at] = y - (total - rows[:, at])
                 rows[:, at] = total

@@ -1,5 +1,7 @@
 """The port's core and framed ops (their CPU paths, i.e. the kernels' plain
 versions) against the JAX package on the same numpy inputs."""
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -481,10 +483,25 @@ SYNTHESIS_CASES = [(2, 65, 9, 2048, 512), (2, 100, 7, 2048, 441), (2, 129, 12, 1
                    (2, 257, 15, 512, 128), (1, 201, 40, 400, 3), (1, 84, 12, 16384, 128)]
 
 
+def test_synthesis_compensates_only_long_sums():
+    """K3 adds each step by a compensated sum only where a row's fp32 running
+    sum is longer than KAHAN_MIN_STEPS; the kernel's launcher and the plain
+    twin read the same limit, and SYNTHESIS_CASES hold both kinds."""
+    import re
+    src = (Path(fk.__file__).resolve().parent.parent / "csrc" / "synthesis_ola.cu").read_text()
+    limit = re.search(r"constexpr int KAHAN_MIN_STEPS = (\d+);", src)
+    assert limit and int(limit.group(1)) == fk.SYNTH_KAHAN_MIN_STEPS
+    assert not fk.synthesis_compensated(1025, 2048, 512)  # (b): 264 steps
+    assert fk.synthesis_compensated(201, 400, 3)  # hop 3: 1876 steps
+    kinds = {fk.synthesis_compensated(f, n, hop) for _, f, _, n, hop in SYNTHESIS_CASES}
+    assert kinds == {False, True}
+
+
 @pytest.mark.parametrize("b,f,t,n,hop", SYNTHESIS_CASES)
 def test_3xtf32_plain_synthesis_matches_plain_and_jax(b, f, t, n, hop):
     """K3's tensor-core arithmetic in fp32 storage (the split operands, each
-    step of 32 bins added to the running sum by a compensated sum, the
+    step of 32 bins added to the running sum, by a compensated sum where the
+    sum is long, the
     overlap-add inside the K loop),
     repeated in plain PyTorch, against the plain version and the JAX
     package's ``synthesis_ola`` (1e-4), and against fp64 (within 4x the

@@ -259,6 +259,27 @@ def test_cascades_are_derived_not_state(switches_off_after):
     assert np.allclose(cascade, jres.compose_cascade(legacy["lowpass_filter"], 2), atol=1e-7)
 
 
+def test_parallel_chain_follows_a_filter_loaded_by_assignment(switches_off_after):
+    """load_state_dict(assign=True) puts in a new tensor whose version may
+    equal the old one's: the cascades are rebuilt from it, and the parallel
+    chain agrees with the serial chain on the new filter (tolerance of
+    tests/test_cqt.py:156)."""
+    tl = tf.CQT2010v2(sr=22050, fmin=32.7, n_bins=84, bins_per_octave=12,
+                      hop_length=512, verbose=False, device="cpu")
+    x = np.random.RandomState(34).randn(1, 22050 + 977).astype(np.float32)
+    _with(tn.set_use_parallel_chain, lambda: tl(x))  # cascades of the old filter
+    new_fir = create_lowpass_filter(band_center=0.45, kernel_length=256,
+                                    transition_bandwidth=0.002).astype(np.float32)
+    state = dict(tl.state_dict())
+    state["lowpass_filter"] = torch.from_numpy(new_fir)
+    tl.load_state_dict(state, assign=True)
+    want = tl(x)
+    got = _with(tn.set_use_parallel_chain, lambda: tl(x))
+    assert np.allclose(_np(tl._cascade(tl.params, 3)),
+                       tres.compose_cascade(new_fir, 3), atol=1e-7)
+    _chain_close(got, want)
+
+
 def test_parallel_chain_tracks_a_lowpass_override(switches_off_after):
     """A filter passed to apply reaches the parallel chain (composed in
     torch, so gradients flow to it) and agrees with the serial chain and

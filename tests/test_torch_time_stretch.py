@@ -83,8 +83,9 @@ def test_locked_vocoder_matches_jax(rate):
 
 
 def test_vocoder_takes_arrays_and_stays_on_the_input_device():
+    """A tensor is worked on where it lies; an array goes to ``device=``."""
     X = _stft_complex(seed=5)
-    a = tf.phase_vocoder(X.numpy(), 0.8, 256)
+    a = tf.phase_vocoder(X.numpy(), 0.8, 256, device="cpu")
     b = tf.phase_vocoder(X, 0.8, 256)
     assert a.device == b.device == X.device and torch.equal(a, b)
 
@@ -118,6 +119,41 @@ def test_locked_stretch_matches_jax_and_keeps_amplitude_and_pitch(rate):
                  verbose=False, device="cpu")
     freq = int(st(y).mean(-1)[0].argmax()) * SR / 4096
     assert abs(freq - 440.0) < SR / 4096 * 1.5, freq
+
+
+def _kernel_arithmetic(monkeypatch):
+    """Every wrapper takes its CUDA branch, and K5 and K3 compute their fp32
+    tensor-core arithmetic (the 3xTF32 twins) in place of a launch."""
+    from nnaudio_tpu_torch.ops import framed_kernels as fk
+    monkeypatch.setattr(fk, "_on_card", lambda t: True)
+    monkeypatch.setattr(fk, "_launch_pair", fk.framed_pair_3xtf32_plain)
+    monkeypatch.setattr(fk, "_launch_synthesis", fk.synthesis_ola_3xtf32_plain)
+
+
+@pytest.mark.parametrize("rate", [0.8, 2.0 ** (-7 / 12)])
+def test_stretch_through_the_kernels_arithmetic_keeps_the_magnitude(rate, monkeypatch):
+    """A tone with overtones and a sweep, stretched with K5's and K3's fp32
+    arithmetic against the plain route. The vocoder magnifies the routes'
+    small STFT differences in the waveform (its peak picking and phases);
+    the output's STFT magnitude stays within 1e-3 by spectral convergence,
+    the limit chip_smoke.py's path (r) holds on the card."""
+    rng = np.random.RandomState(11)
+    t = np.arange(3 * SR) / SR
+    x = sum(np.sin(2 * np.pi * k * 220.0 * t + rng.uniform(0, 2 * np.pi)) / k
+            for k in range(1, 5))
+    x = x + 0.5 * np.sin(2 * np.pi * (300 * t + 800 * t * t))
+    x = torch.from_numpy((x / 2).astype(np.float32))[None]
+    ts = tf.TimeStretch(n_fft=1024, hop_length=256, device="cpu")
+    mag = tf.STFT(n_fft=1024, hop_length=256, output_format="Magnitude",
+                  verbose=False, device="cpu")
+    with torch.no_grad():
+        want = ts(x, rate=rate)
+        with monkeypatch.context() as m:
+            _kernel_arithmetic(m)
+            got = ts(x, rate=rate)
+        assert not torch.equal(got, want)
+        a, b = mag(got), mag(want)
+    assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) < 1e-3
 
 
 def test_unlocked_stretch_matches_jax():
@@ -174,7 +210,7 @@ def test_resample_matches_jax_and_keeps_the_tone():
     assert _rel(y, jf.resample(x, SR, 16000)) <= 1e-5
     spec = np.abs(np.fft.rfft(_np(y)[0] * np.hanning(16000)))
     assert abs(spec.argmax() * 16000 / 16000 - 440.0) < 2.0
-    one = tf.resample(x[0], SR, 44100)  # 1-D in, 1-D out, from an array
+    one = tf.resample(x[0], SR, 44100, device="cpu")  # 1-D in, 1-D out, from an array
     assert one.ndim == 1 and one.shape[0] == 2 * x.shape[-1]
 
 
@@ -220,6 +256,8 @@ def test_new_entry_points_refuse_the_cpu_without_a_device_argument():
                  lambda: tf.GriffinLimCQT(family="2010v2", verbose=False),
                  lambda: tf.GriffinLimCQT(family="vqt", verbose=False),
                  lambda: tf.CFP(), lambda: tf.Combined_Frequency_Periodicity(),
-                 lambda: tf.TimeStretch(), lambda: tf.PitchShift()):
+                 lambda: tf.TimeStretch(), lambda: tf.PitchShift(),
+                 lambda: tf.phase_vocoder(np.zeros((1, 5, 4, 2), np.float32), 0.8, 2),
+                 lambda: tf.resample(np.zeros(100, np.float32), SR, 16000)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()

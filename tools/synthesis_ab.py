@@ -43,7 +43,7 @@ STAGES = ("  static constexpr int STAGES = 3;    // 48 KB each\n",
           "  static constexpr int STAGES = 4;    // 32 KB each\n")
 TRANSPOSE = "      transpose_spectra<S, BT>("
 COPY = "        copy_spectra<S, BT>("
-PRODUCT = "    consume_step<BT>("
+PRODUCT = "    consume_step<BT, KAHAN>("
 
 
 def variants(src: str) -> dict[str, tuple[str, bool]]:
