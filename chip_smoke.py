@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases:
+Phases (each draws its random inputs from a generator of its own, seeded
+from a fixed constant):
  1. the device, and ``nvidia-smi``'s name and power limit;
  2. build every CUDA kernel from ``nnaudio_tpu_torch/csrc`` (nvcc, sm_90a);
  3. hold each kernel against its plain PyTorch version on the card, in fp32
@@ -55,9 +56,11 @@ Phases:
         at bench's 2048/512/128-mel, (k) the trainable STFT and (l) the
         trainable CQT1992v2 under bench's losses, each with exact launches
         (the pair, K5, once; no K1, K2, K6 or K3) and its loss and gradients
-        against the plain route; the input's gradient through a frozen STFT
-        at (b)'s shape (K3 as dx) and a trainable iSTFT's step at (d)'s
-        shape (K3 forward). Then (m) Gammatonegram() and ChromaSTFT() at
+        against the plain route (the trainable STFT's fp32 gradients against
+        the plain route in fp64, within max(1e-4, 4x the fp32 plain route's
+        own error)); the input's gradient through a frozen STFT at (b)'s
+        shape (K3 as dx) and a trainable iSTFT's step at (d)'s shape (K3
+        forward). Then (m) Gammatonegram() and ChromaSTFT() at
         their defaults in both modes (K2 x1 each) and one SGD step of each
         with a trainable bank and STFT (K5 x1); (n) the pyramid ``.inverse``
         of CQT2010v2, VQT(gamma=5) and CQT2010 at sr 22050 / fmin 55 / 48
@@ -77,7 +80,23 @@ Phases:
         output's STFT magnitude against the plain path's by spectral
         convergence < 1e-3, and on one clip the vocoder in fp64 and fp32 on
         both paths' STFTs) on the harmonic batch, and resample 22050 ->
-        16000 against scipy;
+        16000 against scipy; (s) streaming at full width, 32 streams x 10 s
+    at 22.05 kHz in 2048-sample chunks, in both modes: StreamingSTFT
+    Magnitude (K1) and Complex (K5), StreamingMel 128 at power 2 (K2) and 1
+    (K1), StreamingMFCC, StreamingGammatone and StreamingChroma (K2),
+    StreamingCQT() Magnitude (K6) and Complex (K5), StreamingiSTFT on
+    StreamingSTFT's Complex frames and StreamingInverseCQT at (h)'s config
+    on StreamingCQT's (K3), each against its offline center=False
+    transform, one launch per primed step and none while priming, the same
+    frames with fuse=False and no launch, ms per step at B=32 and B=1,
+    audio-s/s and the idle share of 20 steps; then each kernel at a step's
+    shapes (T=4 and T=1) against its plain version and timed; (t) parallel
+    at world size 1 (an NCCL group of one, a (1, 1) mesh): data_parallel,
+    bank_sharded_apply, contraction_sharded_cqt1992, bank_sharded_inverse,
+    time_sharded_stft / istft against the single-device calls with the same
+    launches; (u) utils: a trained MelSpectrogram's state saved and
+    restored in .npz and torch.save formats bit for bit, and
+    profiling.trace around one (b) call naming K1's kernel;
  5. CUDA-event times (median of 15 after warm-up, the host queued ahead of
     the device so that a short kernel's time is the device's) of each kernel,
     its plain version and one PyTorch library call computing the same
@@ -102,6 +121,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -131,6 +151,14 @@ GL_TOL = {"highest": 5e-4, "default": 3e-2}
 SC_DELTA, SC_CEILING = 0.05, 0.25
 MOM = 0.99 / 1.99  # Griffin_Lim's momentum 0.99 as the loop applies it
 REPS = 15
+# each phase draws its random inputs from a generator of its own, seeded from
+# a fixed constant, so that adding or removing a phase, or a draw inside one,
+# changes no other phase's inputs
+PHASE_SEEDS = {"3 kernels": 301, "3 tensor cores": 302, "3 K6": 303, "3 K3": 304,
+               "a highest": 401, "a default": 402, "b highest": 403, "b default": 404,
+               "d": 405, "g": 406, "j-l": 407, "b grad, d step": 408, "m": 409,
+               "o": 410, "p": 411, "q": 412, "s": 413, "t": 414, "u": 415,
+               "5 highest": 501, "5 default": 502, "sweep": 503}
 # the pyramid inverses' config (tests/test_inverse_cqt.py:176-236): hop 128 is
 # at most half the shortest atom, where the inverse is good
 INV_CFG = dict(sr=22050, fmin=55, n_bins=48, bins_per_octave=12, hop_length=128,
@@ -445,7 +473,8 @@ def main() -> int:
         if spills is None:
             log("[build] no cuobjdump beside nvcc: spill sites not read")
 
-    gen = torch.Generator(device=dev).manual_seed(0)
+    def phase_gen(key):
+        return torch.Generator(device=dev).manual_seed(PHASE_SEEDS[key])
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -471,6 +500,7 @@ def main() -> int:
     ]
     # fp32 storage (and carries), at the slice shapes
     max_abs = {k: 0.0 for k in fk.LAUNCHES}
+    gen = phase_gen("3 kernels")
     for mode in ("highest", "default"):
         config.set_matmul_precision(mode)
         for label, b, length, n_fft, hop, f, m in cases:
@@ -562,6 +592,7 @@ def main() -> int:
         ("F 1025, M 12 (chroma)", 4, 220500 + 2048, 2048, 512, 1025, 12),
     ]
     carries = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    gen = phase_gen("3 tensor cores")
     for mode in ("highest", "default"):
         config.set_matmul_precision(mode)
         for label, b, length, n, hop, f, m in tc_cases:
@@ -681,6 +712,7 @@ def main() -> int:
         ("N 5000, hop 100", 2, 9000, 5000, 100, 84),
         ("T 3 (< one tile)", 2, 4300, 4096, 64, 33),
     ]
+    gen = phase_gen("3 K6")
     for mode in ("highest", "default"):
         config.set_matmul_precision(mode)
         for label, b, length, n, hop, bank in k6_cases:
@@ -781,6 +813,7 @@ def main() -> int:
         ("(n) pyramid 84", 4, 84, 431, "(n) default", 512),
     ]
     sums = set()  # the fp32 running sums launched: compensated or not
+    gen = phase_gen("3 K3")
     for mode in ("highest", "default"):
         config.set_matmul_precision(mode)
         for label, b, f, t, n, hop in k3_cases:
@@ -916,6 +949,7 @@ def main() -> int:
     for mode in ("highest", "default"):
         config.set_matmul_precision(mode)
         # (a) the flagship classifier: 4 requests of 32 x 10 s
+        gen = phase_gen(f"a {mode}")
         model = SpectrogramClassifier(n_classes=10, sr=sr_a, n_fft=1024,
                                       hop_length=256, n_mels=64, seed=0,
                                       device=dev)
@@ -931,6 +965,7 @@ def main() -> int:
             f"{dt * 1e3:.1f} ms = {4 * batch * secs / dt:.1f} audio-s/s")
 
         # (b) STFT Magnitude 2048/512 and (c) Mel 128 at 32 x 10 s, 22.05 kHz
+        gen = phase_gen(f"b {mode}")
         xb = randn(batch, sr_b * secs)
         st = STFT(n_fft=2048, hop_length=512, output_format="Magnitude",
                   verbose=False, device=dev)
@@ -951,6 +986,7 @@ def main() -> int:
     config.set_matmul_precision("highest")
 
     # (d) iSTFT and STFT.inverse round trips of (b)'s Complex output
+    gen = phase_gen("d")
     xb = randn(batch, sr_b * secs)
     stc = STFT(n_fft=2048, hop_length=512, iSTFT=True, verbose=False, device=dev)
     ist = iSTFT(n_fft=2048, hop_length=512, verbose=False, device=dev)
@@ -1051,6 +1087,7 @@ def main() -> int:
 
     # (g) CQT1992v2 at its defaults on 32 x 10 s and on one clip; (h) its
     # Complex output
+    gen = phase_gen("g")
     xg = randn(batch, sr_b * secs)
     x1 = xg[:1].contiguous()
     for mode in ("highest", "default"):
@@ -1137,8 +1174,14 @@ def main() -> int:
     def train_path(label, key, loss_fn, params, step, expect, audio_s, loss64=None):
         """Count one step, hold its loss and gradients against the plain
         route, time it; returns the step's ms. With ``loss64`` (the loss on
-        fp64 inputs) and fp32 storage, also print, not held, both routes'
-        gradients against the plain route evaluated in fp64."""
+        fp64 inputs) and fp32 storage, the gradients are held against the
+        plain route evaluated in fp64 instead: each within max(1e-4, 4x the
+        fp32 plain route's own error against fp64), the rule of every
+        tensor-core kernel's fp32 check (PERF.md section 2). Where ``d|X|``
+        is ill-conditioned (``re/|X|`` at the near-zero bins of white noise)
+        no fp32 route holds a fixed 1e-4 of the fp32 plain route, while the
+        fp64 reference tells which route is closer. The loss stays held
+        against the plain route."""
         (loss,), _, counts = counted(label, lambda: step()[0], (), expect)
         names = list(params)
 
@@ -1148,27 +1191,36 @@ def main() -> int:
         l_k, g_k = loss_and_grads()
         l_p, g_p = plain_path(loss_and_grads)
         mode = config.get_config().matmul_precision
+        tol = TOL[mode]
+        errs = {"loss": rel_err(l_k, l_p)}
+        limits = {"loss": tol}
         fp64 = ""
         if loss64 is not None and mode == "highest":
             _, g_r = plain_path(lambda: loss_and_grads(loss64, torch.float64))
-            fp64 = ("; against the plain route in fp64 (printed, not held): "
-                    + ", ".join(f"d{k} kernel route {rel_err(a, c):.2e}, plain "
-                                f"route {rel_err(b, c):.2e}"
-                                for k, a, b, c in zip(names, g_k, g_p, g_r)))
-        errs = {"loss": rel_err(l_k, l_p),
-                **{f"d{k}": rel_err(a, b) for k, a, b in zip(names, g_k, g_p)}}
-        tol = TOL[mode]
+            for k, a, b, c in zip(names, g_k, g_p, g_r):
+                errs[f"d{k} vs fp64"] = rel_err(a, c)
+                limits[f"d{k} vs fp64"] = max(TOL["highest"], 4 * rel_err(b, c))
+            fp64 = ("; gradients against the plain route in fp64: "
+                    + ", ".join(f"d{k} kernel route {rel_err(a, c):.2e}, fp32 plain "
+                                f"route {rel_err(b, c):.2e} (limit {limits[f'd{k} vs fp64']:.2e})"
+                                for k, a, b, c in zip(names, g_k, g_p, g_r))
+                    + "; against the fp32 plain route (printed): "
+                    + ", ".join(f"d{k} {rel_err(a, b):.2e}" for k, a, b in zip(names, g_k, g_p)))
+        else:
+            for k, a, b in zip(names, g_k, g_p):
+                errs[f"d{k}"], limits[f"d{k}"] = rel_err(a, b), tol
         finite = all(bool(torch.isfinite(g).all()) for g in g_k)
         ms = cuda_ms(step, reps=10, warmup=2)
         log(f"[train] {label}: launches {counts}; vs plain route "
-            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items() if "fp64" not in k)
             + f" (tol {tol:g}){fp64}; {ms:.3f} ms per step (CUDA events, median of 10) = "
             f"{audio_s / (ms / 1e3):.1f} audio-s/s")
-        if max(errs.values()) > tol or not finite:
+        if any(errs[k] > limits[k] for k in errs) or not finite:
             fail(f"{label}: the kernel route's loss or gradients disagree with the plain route")
         results[f"{key}_audio_s_per_s"] = audio_s / (ms / 1e3)
         return ms
 
+    gen = phase_gen("j-l")
     xj = {16000: randn(batch, 16000 * secs), sr_b: randn(batch, sr_b * secs)}
     labels = torch.as_tensor(np.random.RandomState(4).randint(0, 10, size=(batch,)),
                              device=dev)
@@ -1232,6 +1284,7 @@ def main() -> int:
     # K5 forward, K3 as dx; and a trainable iSTFT's step at (d)'s shape: K3
     # forward, the kernels' dW as matmuls (the spectrum needs no gradient)
     x_in = xj[sr_b]
+    gen = phase_gen("b grad, d step")
     with torch.no_grad():
         g_b = torch.randn(st(x_in).shape, generator=gen, device=dev)
     train_path("(b) input gradient, frozen STFT Magnitude", "b_input_grad",
@@ -1258,6 +1311,7 @@ def main() -> int:
     # 64 bins and 12 chroma) on 32 x 10 s: one filterbank launch (K2) each;
     # then one SGD step of each with a trainable bank and STFT: the pair
     # (K5) once, no K1, K2 or K6
+    gen = phase_gen("m")
     xm = randn(batch, sr_b * secs)
     frontends = {"Gammatonegram": (Gammatonegram(verbose=False, device=dev),
                                    Gammatonegram(trainable_bins=True, trainable_STFT=True,
@@ -1347,6 +1401,7 @@ def main() -> int:
     # one K3 and the re-analysis (the pair once for 1992v2, once per octave
     # for the pyramids), and one K3 more for the final synthesis
     n_iter = 32
+    gen = phase_gen("o")
     gl_families = [
         ("1992v2", CQT1992v2(sr=sr_b, fmin=55, n_bins=48, bins_per_octave=12,
                              hop_length=128, verbose=False, device=dev), {}),
@@ -1389,6 +1444,7 @@ def main() -> int:
     # (p) the pyramid switches at (i)'s CQT2010v2() and VQT(gamma=2), each on
     # alone: the outputs against the serial loop, and CUDA-event times of
     # both ([ab] lines; serial, switch, serial). The defaults stay off.
+    gen = phase_gen("p")
     xp_ = randn(batch, sr_b * secs)
     with torch.no_grad():
         for label, layer in (("CQT2010v2()", c2010), ("VQT(gamma=2)", vqt2)):
@@ -1424,6 +1480,7 @@ def main() -> int:
     # 16 kHz: no kernel of the port (cuFFT and matmuls); against a numpy fp64
     # oracle on one clip (tests/test_cfp.py:75), and use_mxu_fft=True against
     # the default path (tests/test_mxu_fft.py:75)
+    gen = phase_gen("q")
     xq = randn(batch, 16000 * secs)
     cfp = CFP(fs=16000, device=dev)
     cfp_full = Combined_Frequency_Periodicity(device=dev)
@@ -1561,6 +1618,409 @@ def main() -> int:
             del y, ref
         del X_k, X_p
     del xr, ts, ps, mag_r
+
+    # (s) streaming at full width: 32 streams x 10 s at 22.05 kHz fed in
+    # 2048-sample chunks (107 steps), in fp32 and bf16 storage. Each stream is
+    # held against its offline center=False transform on the card
+    # (tests/test_streaming.py's tolerances in fp32, the fast-mode 5e-2 in
+    # bf16), each primed step must launch its kernel once and a priming step
+    # none, and the same stream with fuse=False launches nothing and gives
+    # the same frames. Printed: ms per step at B=32 and B=1 (CUDA events
+    # around the step, the host included), audio-s/s, whether the frames are
+    # the offline ones bit for bit, and the idle share of 20 steps under
+    # torch.profiler. Then each kernel at the shapes a step gives it (T=4:
+    # a 2048-sample chunk; T=1: a chunk of one hop), against its plain
+    # version and timed, in both modes
+    from nnaudio_tpu_torch import streaming
+    from nnaudio_tpu_torch.features import MFCC
+
+    gen = phase_gen("s")
+    chunk = 2048
+    steps_s = sr_b * secs // chunk
+    xs_noise = randn(batch, steps_s * chunk)
+    xs_harm = harmonic_batch(batch, steps_s * chunk, sr_b, 2, dev)
+    xs_tones = inband_tones(batch, steps_s * chunk, sr_b, 2, dev)
+    h_cfg = dict(sr=sr_b, fmin=55, n_bins=48, hop_length=128)
+    # (rtol, atol of max |ref|) against the offline transform in fp32
+    # (tests/test_streaming.py:47-364); bf16 storage: the fast-mode 5e-2
+    s_tol = {"stft": (0.0, 1e-5), "bank": (1e-4, 1e-5), "mfcc": (1e-4, 1e-4), "cqt": (0.0, 1e-5)}
+
+    def analysis_feed(x):
+        return [x[:, i * chunk:(i + 1) * chunk] for i in range(steps_s)]
+
+    def run_stream(s, feed, axis, flush=False):
+        """Every step of a stream over ``feed``: (output, launches of each
+        step, the last state)."""
+        state = s.init_state(feed[0].shape[0])
+        outs, per_step = [], []
+        for piece in feed:
+            before = dict(fk.LAUNCHES)
+            state, out = s.step(state, piece)
+            per_step.append({k: v - before[k] for k, v in fk.LAUNCHES.items() if v != before[k]})
+            if out.shape[axis]:
+                outs.append(out)
+        if flush:
+            outs.append(s.flush(state))
+        return torch.cat(outs, dim=axis), per_step, state
+
+    def one_stream(state):
+        """The first stream's part of a state."""
+        if isinstance(state, streaming.StreamState):
+            return streaming.StreamState(state.buffer[:1], state.primed)
+        if isinstance(state, tuple):
+            return (state[0][:1], state[1])
+        return state[:1]
+
+    # the synthesis streams' inputs: the analysis streams' Complex frames
+    with torch.no_grad():
+        st_frames = list(streaming.StreamingSTFT(2048, 512, output_format="Complex",
+                                                 device=dev).stream(xs_harm, chunk))
+        cq_frames = list(streaming.StreamingCQT(output_format="Complex", device=dev,
+                                                **h_cfg).stream(xs_tones, chunk))
+    off_cqt_h = CQT1992v2(center=False, output_format="Complex", verbose=False, device=dev,
+                          **h_cfg)
+    stream_specs = [
+        # (label, make(fuse), kernel, feed, output axis, offline, tolerance key)
+        ("StreamingSTFT Magnitude",
+         lambda fuse: streaming.StreamingSTFT(2048, 512, fuse=fuse, device=dev),
+         "framed_magnitude", analysis_feed(xs_noise), 2,
+         lambda: STFT(2048, hop_length=512, center=False, output_format="Magnitude",
+                      verbose=False, device=dev)(xs_noise), "stft"),
+        ("StreamingSTFT Complex",
+         lambda fuse: streaming.StreamingSTFT(2048, 512, output_format="Complex", fuse=fuse,
+                                              device=dev),
+         "framed_pair", analysis_feed(xs_noise), 2,
+         lambda: STFT(2048, hop_length=512, center=False, output_format="Complex",
+                      verbose=False, device=dev)(xs_noise), "stft"),
+        ("StreamingMel 128, power 2",
+         lambda fuse: streaming.StreamingMel(n_mels=128, fuse=fuse, device=dev),
+         "framed_filterbank", analysis_feed(xs_noise), 2,
+         lambda: MelSpectrogram(n_mels=128, center=False, verbose=False, device=dev)(xs_noise),
+         "bank"),
+        ("StreamingMel 128, power 1",
+         lambda fuse: streaming.StreamingMel(n_mels=128, power=1.0, fuse=fuse, device=dev),
+         "framed_magnitude", analysis_feed(xs_noise), 2,
+         lambda: MelSpectrogram(n_mels=128, power=1.0, center=False, verbose=False,
+                                device=dev)(xs_noise), "bank"),
+        ("StreamingMFCC", lambda fuse: streaming.StreamingMFCC(fuse=fuse, device=dev),
+         "framed_filterbank", analysis_feed(xs_noise), 2,
+         lambda: MFCC(top_db=None, center=False, verbose=False, device=dev)(xs_noise), "mfcc"),
+        ("StreamingGammatone", lambda fuse: streaming.StreamingGammatone(fuse=fuse, device=dev),
+         "framed_filterbank", analysis_feed(xs_noise), 2,
+         lambda: Gammatonegram(center=False, verbose=False, device=dev)(xs_noise), "bank"),
+        ("StreamingChroma", lambda fuse: streaming.StreamingChroma(fuse=fuse, device=dev),
+         "framed_filterbank", analysis_feed(xs_noise), 2,
+         lambda: ChromaSTFT(center=False, verbose=False, device=dev)(xs_noise), "bank"),
+        ("StreamingCQT() Magnitude", lambda fuse: streaming.StreamingCQT(fuse=fuse, device=dev),
+         "framed_magnitude_kchunk", analysis_feed(xs_noise), 2,
+         lambda: CQT1992v2(center=False, verbose=False, device=dev)(xs_noise), "cqt"),
+        ("StreamingCQT() Complex",
+         lambda fuse: streaming.StreamingCQT(output_format="Complex", fuse=fuse, device=dev),
+         "framed_pair", analysis_feed(xs_noise), 2,
+         lambda: CQT1992v2(center=False, output_format="Complex", verbose=False,
+                           device=dev)(xs_noise), "cqt"),
+        ("StreamingiSTFT 2048/512",
+         lambda fuse: streaming.StreamingiSTFT(2048, 512, fuse=fuse, device=dev),
+         "synthesis_ola", st_frames, 1,
+         lambda: iSTFT(2048, hop_length=512, center=False, verbose=False, device=dev)(
+             torch.cat(st_frames, dim=2), onesided=True), "istft"),
+        ("StreamingInverseCQT (h)",
+         lambda fuse: streaming.StreamingInverseCQT(fuse=fuse, device=dev, **h_cfg),
+         "synthesis_ola", cq_frames, 1,
+         lambda: off_cqt_h.inverse(torch.cat(cq_frames, dim=2)), "cqt"),
+    ]
+    for mode in ("highest", "default"):
+        config.set_matmul_precision(mode)
+        for label, make, kernel, feed, axis, offline, tol_key in stream_specs:
+            s = make(None)
+            synthesis = axis == 1
+            with torch.no_grad():
+                fk.reset_launches()
+                got, per_step, state = run_stream(s, feed, axis, flush=synthesis)
+                torch.cuda.synchronize()
+                for k, v in fk.LAUNCHES.items():
+                    launches[k] += v
+                ref = offline()
+                plain_s, plain_steps, _ = run_stream(make(False), feed, axis, flush=synthesis)
+            if tuple(got.shape) != tuple(ref.shape) or not torch.isfinite(got).all():
+                fail(f"(s) {label} {mode}: shape {tuple(got.shape)} (offline "
+                     f"{tuple(ref.shape)}) or non-finite output")
+            # a step emits once `width` samples have arrived
+            primed = [i for i in range(len(feed))
+                      if synthesis or (i + 1) * chunk >= s.width]
+            bad = [i for i, c in enumerate(per_step)
+                   if c != ({kernel: 1} if i in primed else {})]
+            if bad or any(plain_steps):
+                fail(f"(s) {label} {mode}: launches per step {per_step[:12]} (plain "
+                     f"stream {[c for c in plain_steps if c][:3]}); expected one {kernel} "
+                     "per primed step, none while priming")
+            scale = float(ref.abs().max())
+            diff = (got - ref).abs()
+            err = edge = float(diff.max()) / scale
+            if tol_key == "istft":
+                err = float(diff[:, 2048:-2048].max()) / scale
+                ok = err <= 1e-5 and edge <= 2e-3
+                tol_txt = "interior 1e-05, edges 2e-03 of max|ref|"
+            else:
+                rtol, atol = s_tol[tol_key]
+                ok = bool((diff <= atol * scale + rtol * ref.abs()).all())
+                tol_txt = f"rtol {rtol:g}, atol {atol:g} of max|ref|"
+            if mode == "default":
+                ok = edge <= TOL["default"]
+                tol_txt = f"{TOL['default']:g} of max|ref| in bf16 storage"
+            # kernel against plain stream; the iSTFT's edges divide by a
+            # window envelope near 0, which magnifies any two routes' last
+            # bits there: held on the interior, as against the offline one
+            e_plain = e_plain_all = rel_err(got, plain_s)
+            if tol_key == "istft":
+                e_plain = rel_err(got[:, 2048:-2048], plain_s[:, 2048:-2048])
+            ok = ok and e_plain <= TOL[mode]
+            same = torch.equal(got, ref)
+            # one steady step from the last state, at B=32 and B=1
+            piece = feed[-1]
+            with torch.no_grad():
+                ms32 = cuda_ms(lambda: s.step(state, piece))
+                ms1 = cuda_ms(lambda: s.step(one_stream(state), piece[:1]))
+                wall, kern = profile_path(lambda: [s.step(state, piece) for _ in range(20)])
+            busy = sum(k_ms for k_ms, _ in kern.values())
+            per_s = batch * chunk / sr_b / (ms32 / 1e3)
+            key = f"s_{label}_{mode}"
+            results[f"{key}_ms_per_step"], results[f"{key}_audio_s_per_s"] = ms32, per_s
+            results[f"{key}_ms_per_step_b1"] = ms1
+            results[f"{key}_idle_share"] = 1 - busy / wall if kern else None
+            results[f"{key}_bit_equal_offline"] = same
+            log(f"[stream] (s) {mode:8s} {label}: {len(feed)} steps, {kernel} x1 on each of "
+                f"{len(primed)} primed steps, none on {len(feed) - len(primed)} priming; vs "
+                f"offline center=False {err:.2e}"
+                + (f" (edges {edge:.2e})" if tol_key == "istft" else "")
+                + f" ({tol_txt}), bit-equal offline: {'yes' if same else 'no'}; fuse=False: "
+                f"no launch, vs the kernel stream {e_plain:.2e}"
+                + (f" on the interior ({e_plain_all:.2e} with the edges)"
+                   if tol_key == "istft" else "")
+                + f" (tol {TOL[mode]:g}) {'ok' if ok else 'FAIL'}")
+            log(f"[serve] (s) {mode:8s} {label}: {ms32:.3f} ms per step at B={batch} "
+                f"(CUDA events, median of {REPS}) = {per_s:.1f} audio-s/s; {ms1:.3f} ms at B=1; "
+                f"20 steps under torch.profiler: wall {wall:.2f} ms, "
+                + (f"device busy {busy:.2f} ms, idle {100 * (1 - busy / wall):.1f}%"
+                   if kern else "device time not measured (no CUDA events)"))
+            if not ok:
+                fail(f"(s) {label} {mode}: the stream disagrees with the offline transform "
+                     "or with its plain stream")
+            del got, ref, plain_s, state
+    config.set_matmul_precision("highest")
+
+    # each kernel at the shapes a step gives it (T=4: a 2048-sample chunk,
+    # T=1: a chunk of one hop; the inverse CQT's hop 128 gives T=16 and 4),
+    # against its plain version and timed (host queued ahead), in both modes
+    s_istft = streaming.StreamingiSTFT(2048, 512, device=dev)
+    s_icqt = streaming.StreamingInverseCQT(device=dev, **h_cfg)
+    fb_s = MelSpectrogram(n_mels=128, verbose=False, device=dev).mel_basis
+    wc_s, ws_s = fourier(2048)
+    f1, n1 = wc_s.shape
+    s_rows = {}
+    for mode in ("highest", "default"):
+        config.set_matmul_precision(mode)
+        esz = 2 if mode == "default" else 4
+        peak = PEAK_BF16 if mode == "default" else PEAK_TF32
+        nnz6 = int(((wc_cqt.to(config.storage_dtype()) != 0)
+                    | (ws_cqt.to(config.storage_dtype()) != 0)).sum())
+        for t_s in (4, 1):
+            x1k = randn(batch, (t_s - 1) * 512 + 2048)
+            x6k = randn(batch, (t_s - 1) * 512 + n_cqt)
+            cases_s = [
+                ("K1 framed_magnitude", lambda: fk.framed_magnitude(x1k, wc_s, ws_s, 512),
+                 lambda: fk.framed_magnitude_plain(x1k, wc_s, ws_s, 512),
+                 4 * batch * t_s * f1 * n1,
+                 esz * (x1k.numel() + 2 * f1 * n1) + 4 * batch * f1 * t_s,
+                 f"B={batch} T={t_s} F={f1} N={n1} hop=512", t_s),
+                ("K5 framed_pair", lambda: fk.framed_pair(x1k, wc_s, ws_s, 512),
+                 lambda: fk.framed_pair_plain(x1k, wc_s, ws_s, 512),
+                 4 * batch * t_s * f1 * n1,
+                 esz * (x1k.numel() + 2 * f1 * n1) + 8 * batch * f1 * t_s,
+                 f"B={batch} T={t_s} F={f1} N={n1} hop=512", t_s),
+                ("K2 framed_filterbank",
+                 lambda: fk.framed_filterbank(x1k, wc_s, ws_s, fb_s, 512),
+                 lambda: fk.framed_filterbank_plain(x1k, wc_s, ws_s, fb_s, 512),
+                 4 * batch * t_s * f1 * n1 + 2 * batch * t_s * f1 * 128,
+                 esz * (x1k.numel() + 2 * f1 * n1 + 128 * f1) + 4 * batch * 128 * t_s,
+                 f"B={batch} T={t_s} F={f1} N={n1} M=128 hop=512", t_s),
+                ("K6 framed_magnitude_kchunk",
+                 lambda: fk.framed_magnitude_kchunk(x6k, wc_cqt, ws_cqt, 512),
+                 lambda: fk.framed_magnitude_plain(x6k, wc_cqt, ws_cqt, 512),
+                 4 * batch * t_s * nnz6,
+                 esz * (x6k.numel() + 2 * wc_cqt.numel()) + 4 * batch * 84 * t_s,
+                 f"B={batch} T={t_s} F=84 N={n_cqt} hop=512 "
+                 f"splits={fk.kchunk_plan(batch, t_s, n_cqt)}", t_s),
+            ]
+            for syn, hop_k, name_k in ((s_istft, 512, "iSTFT"), (s_icqt, 128, "inverse CQT (h)")):
+                t_k = t_s if hop_k == 512 else 4 * t_s
+                f3, n3 = syn._kc.shape
+                args = (randn(batch, f3, t_k), randn(batch, f3, t_k), syn._kc, syn._ks, hop_k)
+                cases_s.append((
+                    f"K3 synthesis_ola ({name_k})",
+                    lambda a=args: fk.synthesis_ola(*a),
+                    lambda a=args: fk.synthesis_ola_plain(*a),
+                    4 * batch * t_k * f3 * n3,
+                    esz * (2 * batch * f3 * t_k + 2 * f3 * n3)
+                    + 4 * batch * (n3 + hop_k * (t_k - 1)),
+                    f"B={batch} T={t_k} F={f3} N={n3} hop={hop_k}", t_k))
+            for label, kern_fn, plain_fn, flops, nbytes, shape, t_k in cases_s:
+                with torch.no_grad():
+                    got, want = kern_fn(), plain_fn()
+                    torch.cuda.synchronize()
+                    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+                    err = max(rel_err(g, w) for g, w in pairs)
+                    ms_k = cuda_ms(kern_fn, queue_ahead=True)
+                    ms_p = cuda_ms(plain_fn, queue_ahead=True)
+                t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES * 1e3
+                bound, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+                s_rows[f"{label} T={t_k} {mode}"] = dict(
+                    ms=ms_k, plain_ms=ms_p, bound_ms=bound, bound_by=by, max_rel_err=err)
+                log(f"[time] (s) {mode:8s} {label} at a step's shape {shape}: kernel "
+                    f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bound:.4f} ms ({by}), "
+                    f"roofline share {100 * bound / ms_k:.1f}%; vs plain {err:.2e} (tol "
+                    f"{TOL[mode]:g}) {'ok' if err <= TOL[mode] else 'FAIL'}")
+                if err > TOL[mode]:
+                    fail(f"(s) {label} T={t_k} {mode}: the kernel disagrees with its plain version")
+                del got, want
+    config.set_matmul_precision("highest")
+    results["s_kernel_rows"] = s_rows
+    del xs_noise, xs_harm, xs_tones, st_frames, cq_frames, stream_specs
+
+    # (t) parallel at world size 1: an NCCL process group of one and a (1, 1)
+    # mesh. Each wrapper is held against the single-device call on the same
+    # inputs (exact, or within 1e-6 of max |ref| where it reorders a sum or
+    # adds an all_reduce), with the same launches. Across ranks (2 and 4) the
+    # package is held only on the CPU, with gloo: this machine has one card
+    import socket
+
+    import torch.distributed as dist
+    from nnaudio_tpu_torch import parallel
+    from nnaudio_tpu_torch.core.overlap import extend_fbins
+
+    gen = phase_gen("t")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    parallel.distributed_initialize(backend="nccl", init_method=f"tcp://localhost:{port}",
+                                    world_size=1, rank=0)
+    try:
+        mesh = parallel.make_mesh()
+        xt_ = randn(batch, 430 * 512)
+        x16 = randn(batch, 16000 * secs)
+        tones = inband_tones(batch, sr_b * secs, sr_b, 3, dev)
+        st_t = STFT(n_fft=2048, hop_length=512, output_format="Magnitude", verbose=False,
+                    device=dev)
+        stc_t = STFT(n_fft=2048, hop_length=512, center=False, output_format="Complex",
+                     verbose=False, device=dev)
+        ist_full = iSTFT(n_fft=2048, hop_length=512, center=False, verbose=False, device=dev)
+        c1992_t = CQT1992(sr=16000, fmin=220, n_bins=40, hop_length=256, trainable_CQT=True,
+                          device=dev)
+        with torch.no_grad():
+            X_h = cqt_h(tones)
+            real_t, imag_t = parallel.time_sharded_stft(xt_, stc_t.wcos, stc_t.wsin, 512, mesh)
+            spec_t = extend_fbins(torch.stack((real_t, -imag_t), dim=-1))
+
+        def stft_pair():
+            X = stc_t(F.pad(xt_, (0, 1536)))
+            return [X[..., 0], -X[..., 1]]
+        t_cases = [
+            # (label, sharded, single device, tolerance of max |ref|: 0 = exact)
+            ("data_parallel STFT Magnitude 2048/512",
+             lambda: parallel.data_parallel(st_t, mesh, output_format="Magnitude")(
+                 parallel.shard_batch(xt_, mesh)), lambda: st_t(xt_), 0.0),
+            ("bank_sharded_apply CQT1992v2()",
+             lambda: parallel.bank_sharded_apply(cqt, mesh)(parallel.shard_batch(xt_, mesh)),
+             lambda: cqt(xt_), 0.0),
+            ("contraction_sharded_cqt1992 (K5 + all_reduce)",
+             lambda: parallel.contraction_sharded_cqt1992(c1992_t, mesh)(x16),
+             lambda: c1992_t(x16, output_format="Magnitude"), 1e-6),
+            ("bank_sharded_inverse (h) (K3 + all_reduce)",
+             lambda: parallel.bank.bank_sharded_inverse(cqt_h, mesh)(X_h),
+             lambda: cqt_h.inverse(X_h), 1e-6),
+            ("time_sharded_stft 2048/512",
+             lambda: list(parallel.time_sharded_stft(xt_, stc_t.wcos, stc_t.wsin, 512, mesh)),
+             stft_pair, 0.0),
+            ("time_sharded_istft 2048/512 (interior)",
+             lambda: parallel.time_sharded_istft(
+                 spec_t[..., 0], spec_t[..., 1], ist_full.kernel_cos, ist_full.kernel_sin,
+                 ist_full.window_mask, 512, mesh)[:, 2048:-2048],
+             lambda: ist_full(spec_t, onesided=False)[:, 2048:xt_.shape[1] - 2048], 1e-6),
+        ]
+        with torch.no_grad():
+            for label, sharded, single, tol in t_cases:
+                ref = single()
+                refs = ref if isinstance(ref, list) else [ref]
+                (out, *rest), _, counts = counted(f"(t) {label}", sharded,
+                                                  tuple(refs[0].shape))
+                _, _, counts_1 = counted(f"(t) {label}, single device", single,
+                                         tuple(refs[0].shape))
+                outs = [out, *rest]
+                err = max(rel_err(o, r) for o, r in zip(outs, refs))
+                same = all(torch.equal(o, r) for o, r in zip(outs, refs))
+                ok = (same if tol == 0 else err <= tol) and counts == counts_1
+                log(f"[path] (t) {label}, world size 1, mesh (1, 1): vs the single-device "
+                    f"call {err:.2e} of max|ref| ({'exact' if tol == 0 else f'tol {tol:g}'}"
+                    f"; bit-equal: {'yes' if same else 'no'}), launches {counts} (single "
+                    f"device {counts_1}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"(t) {label}: differs from the single-device call")
+                del ref, refs, outs
+        log("[path] (t) behaviour across ranks (2 and 4 gloo processes: the halo ring, "
+            "the all_reduce of partial products, gradients summed over `data`, a "
+            "checkpoint restored onto another mesh) is held only on the CPU, by "
+            "tests/test_torch_parallel.py: this machine has one card")
+    finally:
+        dist.destroy_process_group()
+    del xt_, x16, tones, X_h, spec_t
+
+    # (u) utils on the card: the state of a trained MelSpectrogram (one SGD
+    # step of a trainable bank and STFT) saved and restored in both formats,
+    # bit for bit; and profiling.trace around one (b) call, whose trace must
+    # name K1's kernel
+    import tempfile
+
+    from nnaudio_tpu_torch import utils
+
+    gen = phase_gen("u")
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_u_"))
+
+    def trainable_mel():
+        return MelSpectrogram(sr=sr_b, n_fft=2048, hop_length=512, n_mels=128,
+                              trainable_mel=True, trainable_STFT=True, verbose=False, device=dev)
+    mel_u = trainable_mel()
+    xu = randn(batch, sr_b * secs)
+    trained = mel_u.trainable_params()
+    loss_u = torch.log1p(mel_u(xu)).mean()
+    grads_u = torch.autograd.grad(loss_u, list(trained.values()))
+    mel_u.update_params({k: v.detach() - 1e-2 * g for (k, v), g in zip(trained.items(), grads_u)})
+    state_u = mel_u.state_dict()
+    for suffix in (".npz", ".pt"):
+        path = out_dir / f"trained_mel{suffix}"
+        utils.save_params(str(path), state_u)
+        fresh = trainable_mel()
+        utils.restore_transform(fresh, str(path))
+        same = all(torch.equal(fresh.state_dict()[k], v) for k, v in state_u.items())
+        with torch.no_grad():
+            same = same and torch.equal(fresh(xu), mel_u(xu))
+        log(f"[path] (u) save_params / restore_transform ({suffix}) of a trained "
+            f"MelSpectrogram's state ({len(state_u)} tensors, {path.stat().st_size} bytes): "
+            f"state and output bit-equal {'ok' if same else 'FAIL'}")
+        if not same:
+            fail(f"(u) the {suffix} checkpoint does not restore the state bit for bit")
+    trace_dir = out_dir / "trace"
+    with torch.no_grad(), utils.trace(str(trace_dir)) as where:
+        st_t(xu)
+    newest = max(Path(where).glob("*.json"), key=lambda f: f.stat().st_mtime)
+    named = PROFILE_NAMES["framed_magnitude"] in newest.read_text()
+    log(f"[path] (u) profiling.trace around one (b) call: {newest.name} "
+        f"({newest.stat().st_size} bytes) names {PROFILE_NAMES['framed_magnitude']}: "
+        f"{'yes' if named else 'NO'}")
+    shutil.rmtree(out_dir)
+    if not named:
+        fail("(u) the profiler trace does not name K1's kernel")
+    del mel_u, xu, state_u
 
     for k, v in launches.items():
         if v <= 0:
@@ -1743,6 +2203,7 @@ def main() -> int:
         return rows
 
     for mode in ("highest", "default"):
+        gen = phase_gen(f"5 {mode}")
         timings[mode] = time_set(mode)
     config.set_matmul_precision("highest")
 
@@ -1750,6 +2211,7 @@ def main() -> int:
     # 22.05 kHz, hop 512; (h)'s bank at its hop 128) over B = 1-32, on the
     # CQT banks and on dense random banks, and what the dispatch rule
     # (ops.dispatch.kchunk_envelope) loses where it picks the slower one
+    gen = phase_gen("sweep")
     sweep_banks = [("CQT1992v2() 84x16384", wc_cqt, ws_cqt, 512),
                    ("(h) CQT1992v2 48x8192", cqt_h.cqt_kernels_real,
                     cqt_h.cqt_kernels_imag, 128),

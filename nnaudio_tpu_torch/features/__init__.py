@@ -1,4 +1,12 @@
-"""Spectral feature transforms of the PyTorch port."""
+"""Spectral feature transforms of the PyTorch port.
+
+The namespace of ``nnaudio_tpu.features``: every transform, the ``STFTBase``
+alias of the base class (nnAudio's name for it) and the function-level
+``compat`` names nnAudio star-exports through ``nnAudio.features``. The
+helpers ``hermitian_weights``, ``power_to_db``, ``mfcc_from_db`` and
+``normalize_frames`` are importable here too, outside ``__all__`` as in the
+JAX package.
+"""
 from .base import SpectralTransform
 from .cfp import CFP, Combined_Frequency_Periodicity
 from .chroma import ChromaSTFT, normalize_frames
@@ -11,33 +19,36 @@ from .mel import MFCC, MelSpectrogram, mfcc_from_db, power_to_db
 from .stft import STFT, hermitian_weights, iSTFT
 from .time_stretch import PitchShift, TimeStretch, phase_vocoder, resample
 from .vqt import VQT
+from ..compat import *  # noqa: F401,F403
+from ..compat import __all__ as _compat_all
+
+# nnAudio exposes its nn.Module base as STFTBase; the alias keeps isinstance
+# checks and subclass imports working
+STFTBase = SpectralTransform
 
 __all__ = [
     "SpectralTransform",
+    "STFTBase",
     "STFT",
     "iSTFT",
-    "hermitian_weights",
     "MelSpectrogram",
     "MFCC",
-    "power_to_db",
-    "mfcc_from_db",
     "Gammatonegram",
     "ChromaSTFT",
-    "normalize_frames",
-    "Griffin_Lim",
-    "InverseMelSpectrogram",
-    "InverseMFCC",
+    "CQT",
     "CQT1992",
     "CQT1992v2",
-    "CQT",
     "CQT2010",
     "CQT2010v2",
     "VQT",
-    "GriffinLimCQT",
     "CFP",
     "Combined_Frequency_Periodicity",
-    "TimeStretch",
+    "Griffin_Lim",
+    "GriffinLimCQT",
+    "InverseMelSpectrogram",
+    "InverseMFCC",
     "PitchShift",
-    "phase_vocoder",
+    "TimeStretch",
     "resample",
-]
+    "phase_vocoder",
+] + list(_compat_all)

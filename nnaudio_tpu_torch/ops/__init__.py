@@ -6,6 +6,7 @@ from .dispatch import (
     framed_filterbank,
     framed_magnitude,
     framed_power,
+    force_fuse,
     gl_step,
     kchunk_envelope,
     synthesis_ola,
@@ -19,6 +20,7 @@ __all__ = [
     "framed_filterbank",
     "framed_magnitude",
     "framed_power",
+    "force_fuse",
     "gl_step",
     "synthesis_ola",
     "KCHUNK_MIN_N",

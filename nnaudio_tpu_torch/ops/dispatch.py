@@ -22,8 +22,17 @@ K6 forward.
 
 K1, K2, K4 and K5 are one tensor-core kernel (``csrc/framed_tc.cu``) with
 four epilogues; K3 and K6 have sources of their own.
+
+:func:`force_fuse` overrides the switches inside a block (the counterpart of
+the JAX package's ``framed_matmul.force_fuse``; the streaming classes' ``fuse=``
+argument): ``True`` takes the kernels, ``False`` the plain versions, ``None``
+leaves ``config`` in charge. A CPU tensor takes the plain version whatever the
+override says, as always.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
@@ -42,6 +51,30 @@ from . import framed_kernels as fk
 #: shape go the same way.
 KCHUNK_MIN_N = 2048
 
+_FORCE_FUSE: contextvars.ContextVar = contextvars.ContextVar("force_fuse", default=None)
+
+
+@contextlib.contextmanager
+def force_fuse(flag: bool | None):
+    """Inside the block, ``True`` launches the kernels for CUDA tensors even
+    where ``config.set_use_kernels*(False)`` turned them off, ``False`` takes
+    the plain versions, ``None`` leaves ``config`` in charge."""
+    token = _FORCE_FUSE.set(flag)
+    try:
+        yield
+    finally:
+        _FORCE_FUSE.reset(token)
+
+
+def _analysis_on() -> bool:
+    forced = _FORCE_FUSE.get()
+    return analysis_kernel_enabled() if forced is None else forced
+
+
+def _synthesis_on() -> bool:
+    forced = _FORCE_FUSE.get()
+    return synthesis_kernel_enabled() if forced is None else forced
+
 
 def kchunk_envelope(f: int, n: int) -> bool:
     """Whether a bank of ``f`` bins of ``n`` samples goes to K6."""
@@ -49,7 +82,7 @@ def kchunk_envelope(f: int, n: int) -> bool:
 
 
 def _magnitude(x, wcos, wsin, hop, eps, square):
-    if not analysis_kernel_enabled():
+    if not _analysis_on():
         return fk.framed_magnitude_plain(x, wcos, wsin, hop, eps=eps, square=square)
     if kchunk_envelope(*wcos.shape):
         return fk.framed_magnitude_kchunk(x, wcos, wsin, hop, eps=eps, square=square)
@@ -59,7 +92,7 @@ def _magnitude(x, wcos, wsin, hop, eps, square):
 def framed_basis_pair(x, wcos, wsin, hop):
     """Signal (B, L) x bases (F, n_fft) -> (real, imag_raw), each (B, F, T).
     ``imag_raw`` is the un-negated sin projection."""
-    if analysis_kernel_enabled():
+    if _analysis_on():
         return fk.framed_pair(x, wcos, wsin, hop)
     return fk.framed_pair_plain(x, wcos, wsin, hop)
 
@@ -87,7 +120,7 @@ def framed_power(x, wcos, wsin, hop):
 def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0):
     """``fb @ (|STFT|^2 + eps)`` -> (B, n_mels, T); the (B, F, T) power never
     reaches device memory on the kernel path."""
-    if analysis_kernel_enabled():
+    if _analysis_on():
         return fk.framed_filterbank(x, wcos, wsin, fb, hop, eps=eps)
     return fk.framed_filterbank_plain(x, wcos, wsin, fb, hop, eps=eps)
 
@@ -95,7 +128,7 @@ def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0):
 def synthesis_ola(spec_re, spec_im, kc, ks, hop):
     """iSTFT synthesis: (B, F, T) spectra x (F, n_fft) fully weighted kernels
     -> (B, n_fft + hop*(T-1)) overlap-added signal, ``OLA(kc^T Re - ks^T Im)``."""
-    if synthesis_kernel_enabled():
+    if _synthesis_on():
         return fk.synthesis_ola(spec_re, spec_im, kc, ks, hop)
     return fk.synthesis_ola_plain(spec_re, spec_im, kc, ks, hop)
 
@@ -104,6 +137,6 @@ def gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom):
     """One Griffin-Lim analysis step on the signal ``x``: the pair, then
     ``n = (re, -imag_raw) - mom * p`` and ``c = S * n / |n|``. Returns the
     next carries ``(c_re, c_im, r_re, r_im)`` in ``p_re``'s dtype."""
-    if analysis_kernel_enabled():
+    if _analysis_on():
         return fk.gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom)
     return fk.gl_step_plain(x, wcos, wsin, S, p_re, p_im, hop, mom)
