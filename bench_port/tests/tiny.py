@@ -1,0 +1,37 @@
+"""A copy of the benchmark's tree with the real configurations, limits and
+readers and tiny traffic under the real mixes' names, for CPU runs."""
+from __future__ import annotations
+
+import json
+import shutil
+from pathlib import Path
+
+BENCH = Path(__file__).resolve().parent.parent
+ROOT = BENCH.parent
+
+TINY_TRAFFIC = {
+    "serve_b32x10s": {"loop": "offline", "batch": 2, "clip_seconds": 1.0, "pool": 2, "sample": 2},
+    "train_b32x10s": {"loop": "train", "batch": 4, "clip_seconds": 0.5, "pool": 3},
+    "stream_32x2048": {"loop": "stream", "streams": 2, "chunk": 2048, "stream_seconds": 0.5,
+                       "pool": 2, "sample": 2},
+}
+
+
+def tree(tmp: Path) -> tuple[Path, Path]:
+    """``(root, base)``: a checkout root holding ``BENCHMARK.json`` and the
+    benchmark's folder ``base`` with tiny traffic."""
+    base = tmp / "bench"
+    for part in ("configs", "limits", "metrics"):
+        shutil.copytree(BENCH / part, base / part)
+    (base / "traffic").mkdir()
+    for name, mix in TINY_TRAFFIC.items():
+        (base / "traffic" / f"{name}.json").write_text(json.dumps(mix))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    for c in bench["configs"]:
+        c["file"] = f"bench/configs/{Path(c['file']).name}"
+    (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
+    return tmp, base
+
+
+def cells() -> list[str]:
+    return [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
