@@ -1,0 +1,6 @@
+"""host_self_ms.launch.serve: host self ms of the kernels' ctypes launches (nnaudio.launch.K*) per call, in the device's traced stretch."""
+from bench_port import spans
+
+
+def read(ctx):
+    return spans.self_ms_per_call(spans.device_stretch_table(), "nnaudio.launch.")

@@ -1,0 +1,6 @@
+"""host_self_ms.wrap.serve: host self ms of the kernel wrappers (nnaudio.wrap.K*) per call: checks, operand casts and copies, output and workspace allocation, in the device's traced stretch."""
+from bench_port import spans
+
+
+def read(ctx):
+    return spans.self_ms_per_call(spans.device_stretch_table(), "nnaudio.wrap.")

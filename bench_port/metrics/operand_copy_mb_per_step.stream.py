@@ -1,0 +1,6 @@
+"""operand_copy_mb_per_step.stream: MB of the new tensors the kernel wrappers made from their operands, per step, in the device's traced stretch."""
+from bench_port import spans
+
+
+def read(ctx):
+    return spans.copy_mb_per_call(spans.device_stretch_table())

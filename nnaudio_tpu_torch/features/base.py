@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .._spans import span
 from ..config import resolve_device
 
 
@@ -47,8 +48,15 @@ class SpectralTransform(nn.Module):
     """Base for the feature transforms.
 
     Subclasses register tensors in ``__init__`` with :meth:`_register` and
-    implement ``_forward(params, x, **kwargs)``.
+    implement ``_forward(params, x, **kwargs)``. While a profiler runs,
+    :meth:`apply` is the span ``nnaudio.transform.<Class>``.
     """
+
+    _span_name = "nnaudio.transform.SpectralTransform"
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        cls._span_name = "nnaudio.transform." + cls.__name__
 
     def __init__(self, device=None) -> None:
         super().__init__()
@@ -124,10 +132,11 @@ class SpectralTransform(nn.Module):
     def apply(self, params: Mapping[str, torch.Tensor] | None, x, **kwargs):
         """Functional forward: ``params`` (possibly a partial override, e.g.
         just the trainable subset) applied over the stored tensors."""
-        merged = self.params
-        if params:
-            merged.update(params)
-        return self._forward(merged, self._input(x), **kwargs)
+        with span(self._span_name):
+            merged = self.params
+            if params:
+                merged.update(params)
+            return self._forward(merged, self._input(x), **kwargs)
 
     def forward(self, x, **kwargs):
         return self.apply(None, x, **kwargs)

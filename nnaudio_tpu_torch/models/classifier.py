@@ -6,6 +6,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .._spans import span
 from ..features.base import adopt_state, to_float32
 from ..features.mel import MelSpectrogram
 
@@ -74,11 +75,17 @@ def train_step(model: SpectrogramClassifier, params, x, labels, lr=1e-3):
     new_params)`` with ``new_params[k] = params[k] - lr * dloss/dparams[k]``.
     A pure function of ``params``: the gradients go to fresh leaves, so no
     tensor of the model or of ``params`` is changed and no ``.grad`` is
-    written."""
-    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-    with torch.enable_grad():
-        loss = model.loss_fn(leaves, x, labels)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-    new_params = {k: (v - lr * g).detach()
-                  for (k, v), g in zip(leaves.items(), grads)}
-    return loss.detach(), new_params
+    written. While a profiler runs, the step is the span
+    ``nnaudio.train.step`` around ``.forward`` (the loss), ``.backward``
+    (the gradients) and ``.update`` (the new parameters)."""
+    with span("nnaudio.train.step"):
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with torch.enable_grad():
+            with span("nnaudio.train.forward"):
+                loss = model.loss_fn(leaves, x, labels)
+            with span("nnaudio.train.backward"):
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+        with span("nnaudio.train.update"):
+            new_params = {k: (v - lr * g).detach()
+                          for (k, v), g in zip(leaves.items(), grads)}
+        return loss.detach(), new_params

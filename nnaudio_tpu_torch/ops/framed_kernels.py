@@ -31,7 +31,10 @@ it launches its kernel or raises. It checks device, dtype and shape, makes
 the operands contiguous in the storage type of the precision mode (bf16 in
 ``default`` mode, fp32 otherwise), allocates the output with ``torch.empty``,
 launches on the current stream, raises on a nonzero ``cudaError_t``, and
-adds one to its entry of :data:`LAUNCHES`.
+adds one to its entry of :data:`LAUNCHES`. While a profiler runs, each
+launcher is the span ``nnaudio.wrap.K<n>`` and each ``ctypes`` call the span
+``nnaudio.launch.K<n>``; the launch and each new tensor made from an operand
+count against the wrapper's span (:mod:`nnaudio_tpu_torch.utils.profiling`).
 
 A differentiated call (grad enabled and an operand that requires grad)
 takes the JAX package's route for a differentiated forward
@@ -54,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from .._spans import copied, note_launch, span
 from ..config import matmul_numerics, round_to_storage, storage_dtype
 from ..core.apply import apply_basis, project
 from ..core.frame import frame_signal, frames_to_signal, num_frames
@@ -375,6 +379,14 @@ _SIGNATURES = {
         "framed_kchunk",
         [_VOID] * 3 + [ctypes.c_longlong] + [_INT] * 4 + [_VOID]),
 }
+#: the span of each C entry's launch
+_LAUNCH_SPANS = {"nnaudio_framed_magnitude": "nnaudio.launch.K1",
+                 "nnaudio_framed_filterbank": "nnaudio.launch.K2",
+                 "nnaudio_synthesis_ola": "nnaudio.launch.K3",
+                 "nnaudio_gl_step": "nnaudio.launch.K4",
+                 "nnaudio_framed_pair": "nnaudio.launch.K5",
+                 "nnaudio_framed_magnitude_kchunk": "nnaudio.launch.K6",
+                 "nnaudio_kchunk_ranges": "nnaudio.launch.K6"}
 _fns: dict[str, object] = {}
 
 
@@ -398,7 +410,7 @@ def _operand(t: torch.Tensor, name: str, ndim: int, device) -> torch.Tensor:
         raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} must be float32 (or bfloat16), got {t.dtype}")
-    return t.to(storage_dtype()).contiguous()
+    return copied(t.to(storage_dtype()).contiguous(), t)
 
 
 def _carry(t: torch.Tensor, name: str, shape, dtype, device) -> torch.Tensor:
@@ -410,7 +422,7 @@ def _carry(t: torch.Tensor, name: str, shape, dtype, device) -> torch.Tensor:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
-    return t.to(dtype).contiguous()
+    return copied(t.to(dtype).contiguous(), t)
 
 
 def _check_cuda(x: torch.Tensor) -> None:
@@ -420,7 +432,9 @@ def _check_cuda(x: torch.Tensor) -> None:
 
 
 def _run(name: str, *args) -> None:
-    err = _fn(name)(*args)
+    with span(_LAUNCH_SPANS[name]):
+        err = _fn(name)(*args)
+    note_launch()
     if err != 0:
         raise RuntimeError(f"{name} failed to launch: cudaError_t {err}")
 
@@ -450,15 +464,16 @@ def _analysis_operands(x, wcos, wsin, hop):
 
 
 def _launch_magnitude(x, wcos, wsin, hop, eps, square):
-    xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
-    b, _, _, _, f, t = dims
-    out = torch.empty((b, f, t), dtype=torch.float32, device=xs.device)
-    with torch.cuda.device(xs.device):
-        _run("nnaudio_framed_magnitude", xs.data_ptr(), wc.data_ptr(),
-             ws.data_ptr(), out.data_ptr(), *dims, float(eps), int(square),
-             int(xs.dtype == torch.bfloat16), _stream())
-    LAUNCHES["framed_magnitude"] += 1
-    return out
+    with span("nnaudio.wrap.K1"):
+        xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
+        b, _, _, _, f, t = dims
+        out = torch.empty((b, f, t), dtype=torch.float32, device=xs.device)
+        with torch.cuda.device(xs.device):
+            _run("nnaudio_framed_magnitude", xs.data_ptr(), wc.data_ptr(),
+                 ws.data_ptr(), out.data_ptr(), *dims, float(eps), int(square),
+                 int(xs.dtype == torch.bfloat16), _stream())
+        LAUNCHES["framed_magnitude"] += 1
+        return out
 
 
 #: K6 takes banks of at most this many bins (one block holds them all)
@@ -532,25 +547,26 @@ def kchunk_ranges_plain(wcos, wsin, group: int = KCHUNK_GROUP):
 def kchunk_ranges(wcos, wsin):
     """The group ranges of :func:`kchunk_ranges_plain` as K6's pre-pass finds
     them on the card, from the bank in the storage type of the precision
-    mode (an inspection: the count of launches is not touched)."""
+    mode (an inspection: :data:`LAUNCHES` is not touched)."""
     if not _on_card(wcos):
         return kchunk_ranges_plain(wcos, wsin)
-    _check_cuda(wcos)
-    dev = wcos.device
-    wc = _operand(wcos, "wcos", 2, dev)
-    ws = _operand(wsin, "wsin", 2, dev)
-    f, n = wc.shape
-    if ws.shape != wc.shape or f > KCHUNK_MAX_F:
-        raise ValueError(f"banks {tuple(wc.shape)}, {tuple(ws.shape)}: equal shapes of "
-                         f"at most {KCHUNK_MAX_F} bins")
-    nbytes = kchunk_workspace_bytes(1, f, n, 1, 1, wc.dtype)
-    work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        _run("nnaudio_kchunk_ranges", wc.data_ptr(), ws.data_ptr(), work.data_ptr(),
-             nbytes, f, n, int(wc.dtype == torch.bfloat16), KCHUNK_GROUP, _stream())
-    groups = _ceil_div(f, KCHUNK_GROUP)
-    at = KCHUNK_GROUP_RANGES
-    return work[at:at + 8 * groups].view(torch.int32).reshape(groups, 2).long()
+    with span("nnaudio.wrap.K6"):
+        _check_cuda(wcos)
+        dev = wcos.device
+        wc = _operand(wcos, "wcos", 2, dev)
+        ws = _operand(wsin, "wsin", 2, dev)
+        f, n = wc.shape
+        if ws.shape != wc.shape or f > KCHUNK_MAX_F:
+            raise ValueError(f"banks {tuple(wc.shape)}, {tuple(ws.shape)}: equal shapes of "
+                             f"at most {KCHUNK_MAX_F} bins")
+        nbytes = kchunk_workspace_bytes(1, f, n, 1, 1, wc.dtype)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        with torch.cuda.device(dev):
+            _run("nnaudio_kchunk_ranges", wc.data_ptr(), ws.data_ptr(), work.data_ptr(),
+                 nbytes, f, n, int(wc.dtype == torch.bfloat16), KCHUNK_GROUP, _stream())
+        groups = _ceil_div(f, KCHUNK_GROUP)
+        at = KCHUNK_GROUP_RANGES
+        return work[at:at + 8 * groups].view(torch.int32).reshape(groups, 2).long()
 
 
 def framed_magnitude_banded_3xtf32_plain(x, wcos, wsin, hop, eps=0.0, square=False,
@@ -586,118 +602,125 @@ def framed_magnitude_banded_3xtf32_plain(x, wcos, wsin, hop, eps=0.0, square=Fal
 
 
 def _launch_magnitude_kchunk(x, wcos, wsin, hop, eps, square, splits=None):
-    xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
-    b, _, n, _, f, t = dims
-    if f > KCHUNK_MAX_F:
-        raise ValueError(
-            f"the split-K magnitude kernel takes at most {KCHUNK_MAX_F} bins, "
-            f"got {f}")
-    splits = kchunk_plan(b, t, n, splits)
-    # the bank's ranges and packed copy, made anew by the kernel's pre-pass,
-    # and the partial (re, im) of every split
-    nbytes = kchunk_workspace_bytes(b, f, n, t, splits, xs.dtype)
-    work = torch.empty(nbytes, dtype=torch.uint8, device=xs.device)
-    out = torch.empty((b, f, t), dtype=torch.float32, device=xs.device)
-    with torch.cuda.device(xs.device):
-        _run("nnaudio_framed_magnitude_kchunk", xs.data_ptr(), wc.data_ptr(),
-             ws.data_ptr(), out.data_ptr(), work.data_ptr(), nbytes, *dims, splits,
-             float(eps), int(square), int(xs.dtype == torch.bfloat16), _stream())
-    LAUNCHES["framed_magnitude_kchunk"] += 1
-    return out
+    with span("nnaudio.wrap.K6"):
+        xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
+        b, _, n, _, f, t = dims
+        if f > KCHUNK_MAX_F:
+            raise ValueError(
+                f"the split-K magnitude kernel takes at most {KCHUNK_MAX_F} bins, "
+                f"got {f}")
+        splits = kchunk_plan(b, t, n, splits)
+        # the bank's ranges and packed copy, made anew by the kernel's pre-pass,
+        # and the partial (re, im) of every split
+        nbytes = kchunk_workspace_bytes(b, f, n, t, splits, xs.dtype)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=xs.device)
+        out = torch.empty((b, f, t), dtype=torch.float32, device=xs.device)
+        with torch.cuda.device(xs.device):
+            _run("nnaudio_framed_magnitude_kchunk", xs.data_ptr(), wc.data_ptr(),
+                 ws.data_ptr(), out.data_ptr(), work.data_ptr(), nbytes, *dims, splits,
+                 float(eps), int(square), int(xs.dtype == torch.bfloat16), _stream())
+        LAUNCHES["framed_magnitude_kchunk"] += 1
+        return out
 
 
 def _launch_filterbank(x, wcos, wsin, fb, hop, eps):
-    xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
-    b, _, _, _, f, t = dims
-    fb_t = _operand(fb.t(), "fb", 2, xs.device)  # (F, M)
-    if fb_t.shape[0] != f:
-        raise ValueError(f"fb {tuple(fb.shape)} does not match {f} bins")
-    m = fb_t.shape[1]
-    out = torch.empty((b, m, t), dtype=torch.float32, device=xs.device)
-    # each block tile of bins writes its partial projection here; a second
-    # kernel sums the tiles in order
-    work = torch.empty((_ceil_div(f, TC_BLOCK_F), b, m,
-                        _ceil_div(t, TC_FRAME_ALIGN) * TC_FRAME_ALIGN),
-                       dtype=torch.float32, device=xs.device)
-    with torch.cuda.device(xs.device):
-        _run("nnaudio_framed_filterbank", xs.data_ptr(), wc.data_ptr(),
-             ws.data_ptr(), fb_t.data_ptr(), out.data_ptr(), work.data_ptr(),
-             *dims, m, float(eps), int(xs.dtype == torch.bfloat16), _stream())
-    LAUNCHES["framed_filterbank"] += 1
-    return out
+    with span("nnaudio.wrap.K2"):
+        xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
+        b, _, _, _, f, t = dims
+        fb_t = _operand(fb.t(), "fb", 2, xs.device)  # (F, M)
+        if fb_t.shape[0] != f:
+            raise ValueError(f"fb {tuple(fb.shape)} does not match {f} bins")
+        m = fb_t.shape[1]
+        out = torch.empty((b, m, t), dtype=torch.float32, device=xs.device)
+        # each block tile of bins writes its partial projection here; a second
+        # kernel sums the tiles in order
+        work = torch.empty((_ceil_div(f, TC_BLOCK_F), b, m,
+                            _ceil_div(t, TC_FRAME_ALIGN) * TC_FRAME_ALIGN),
+                           dtype=torch.float32, device=xs.device)
+        with torch.cuda.device(xs.device):
+            _run("nnaudio_framed_filterbank", xs.data_ptr(), wc.data_ptr(),
+                 ws.data_ptr(), fb_t.data_ptr(), out.data_ptr(), work.data_ptr(),
+                 *dims, m, float(eps), int(xs.dtype == torch.bfloat16), _stream())
+        LAUNCHES["framed_filterbank"] += 1
+        return out
 
 
 def _launch_pair(x, wcos, wsin, hop):
-    xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
-    b, _, _, _, f, t = dims
-    re = torch.empty((b, f, t), dtype=torch.float32, device=xs.device)
-    im = torch.empty_like(re)
-    with torch.cuda.device(xs.device):
-        _run("nnaudio_framed_pair", xs.data_ptr(), wc.data_ptr(),
-             ws.data_ptr(), re.data_ptr(), im.data_ptr(), *dims,
-             int(xs.dtype == torch.bfloat16), _stream())
-    LAUNCHES["framed_pair"] += 1
-    return re, im
+    with span("nnaudio.wrap.K5"):
+        xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
+        b, _, _, _, f, t = dims
+        re = torch.empty((b, f, t), dtype=torch.float32, device=xs.device)
+        im = torch.empty_like(re)
+        with torch.cuda.device(xs.device):
+            _run("nnaudio_framed_pair", xs.data_ptr(), wc.data_ptr(),
+                 ws.data_ptr(), re.data_ptr(), im.data_ptr(), *dims,
+                 int(xs.dtype == torch.bfloat16), _stream())
+        LAUNCHES["framed_pair"] += 1
+        return re, im
 
 
 def _launch_gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom):
-    xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
-    b, _, _, _, f, t = dims
-    dev, shape, carry = xs.device, (b, f, t), p_re.dtype
-    mag = _carry(S, "S", shape, torch.float32, dev)
-    pr = _carry(p_re, "p_re", shape, carry, dev)
-    pi = _carry(p_im, "p_im", shape, carry, dev)
-    outs = [torch.empty(shape, dtype=carry, device=dev) for _ in range(4)]
-    with torch.cuda.device(dev):
-        _run("nnaudio_gl_step", xs.data_ptr(), wc.data_ptr(), ws.data_ptr(),
-             mag.data_ptr(), pr.data_ptr(), pi.data_ptr(),
-             *(o.data_ptr() for o in outs), *dims, float(mom),
-             int(xs.dtype == torch.bfloat16), int(carry == torch.bfloat16),
-             _stream())
-    LAUNCHES["gl_step"] += 1
-    return tuple(outs)
+    with span("nnaudio.wrap.K4"):
+        xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
+        b, _, _, _, f, t = dims
+        dev, shape, carry = xs.device, (b, f, t), p_re.dtype
+        mag = _carry(S, "S", shape, torch.float32, dev)
+        pr = _carry(p_re, "p_re", shape, carry, dev)
+        pi = _carry(p_im, "p_im", shape, carry, dev)
+        outs = [torch.empty(shape, dtype=carry, device=dev) for _ in range(4)]
+        with torch.cuda.device(dev):
+            _run("nnaudio_gl_step", xs.data_ptr(), wc.data_ptr(), ws.data_ptr(),
+                 mag.data_ptr(), pr.data_ptr(), pi.data_ptr(),
+                 *(o.data_ptr() for o in outs), *dims, float(mom),
+                 int(xs.dtype == torch.bfloat16), int(carry == torch.bfloat16),
+                 _stream())
+        LAUNCHES["gl_step"] += 1
+        return tuple(outs)
 
 
 def _launch_synthesis(spec_re, spec_im, kc, ks, hop):
-    _check_cuda(spec_re)
-    dev = spec_re.device
-    sre = _operand(spec_re, "spec_re", 3, dev)
-    sim = _operand(spec_im, "spec_im", 3, dev)
-    kcs = _operand(kc, "kc", 2, dev)
-    kss = _operand(ks, "ks", 2, dev)
-    if sre.shape != sim.shape or kcs.shape != kss.shape \
-            or kcs.shape[0] != sre.shape[1]:
-        raise ValueError(
-            f"shapes differ: spec_re {tuple(sre.shape)}, spec_im "
-            f"{tuple(sim.shape)}, kc {tuple(kcs.shape)}, ks {tuple(kss.shape)}")
-    if hop < 1:
-        raise ValueError(f"hop must be >= 1, got {hop}")
-    b, f, t = sre.shape
-    n = kcs.shape[1]
-    bf16 = sre.dtype == torch.bfloat16
-    # the kernels transposed to (N, Fp), Fp = F rounded up to a K chunk, zeros
-    # past F: the K-major A operand that TF32 products need, with rows that
-    # TMA can read (16-byte aligned)
-    fp = _ceil_div(f, SYNTH_BK[sre.dtype]) * SYNTH_BK[sre.dtype]
-    kct = torch.zeros((n, fp), dtype=sre.dtype, device=dev)
-    kst = torch.zeros_like(kct)
-    kct[:, :f] = kcs.t()
-    kst[:, :f] = kss.t()
-    # the kernel copies the spectra in 16-byte pieces from 16-byte aligned
-    # rows: pad each row with zeros to a multiple of a piece
-    per16 = 16 // sre.element_size()
-    tp = _ceil_div(t, per16) * per16
-    if tp != t:
-        sre, sim = (F.pad(a, (0, tp - t)) for a in (sre, sim))
-    elif sre.data_ptr() % 16 or sim.data_ptr() % 16:
-        sre, sim = sre.clone(), sim.clone()
-    out = torch.empty((b, n + hop * (t - 1)), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _run("nnaudio_synthesis_ola", sre.data_ptr(), sim.data_ptr(),
-             kct.data_ptr(), kst.data_ptr(), out.data_ptr(), b, f, t, tp, n,
-             hop, fp, int(bf16), _stream())
-    LAUNCHES["synthesis_ola"] += 1
-    return out
+    with span("nnaudio.wrap.K3"):
+        _check_cuda(spec_re)
+        dev = spec_re.device
+        sre = _operand(spec_re, "spec_re", 3, dev)
+        sim = _operand(spec_im, "spec_im", 3, dev)
+        kcs = _operand(kc, "kc", 2, dev)
+        kss = _operand(ks, "ks", 2, dev)
+        if sre.shape != sim.shape or kcs.shape != kss.shape \
+                or kcs.shape[0] != sre.shape[1]:
+            raise ValueError(
+                f"shapes differ: spec_re {tuple(sre.shape)}, spec_im "
+                f"{tuple(sim.shape)}, kc {tuple(kcs.shape)}, ks {tuple(kss.shape)}")
+        if hop < 1:
+            raise ValueError(f"hop must be >= 1, got {hop}")
+        b, f, t = sre.shape
+        n = kcs.shape[1]
+        bf16 = sre.dtype == torch.bfloat16
+        # the kernels transposed to (N, Fp), Fp = F rounded up to a K chunk, zeros
+        # past F: the K-major A operand that TF32 products need, with rows that
+        # TMA can read (16-byte aligned)
+        fp = _ceil_div(f, SYNTH_BK[sre.dtype]) * SYNTH_BK[sre.dtype]
+        kct = torch.zeros((n, fp), dtype=sre.dtype, device=dev)
+        kst = torch.zeros_like(kct)
+        kct[:, :f] = kcs.t()
+        kst[:, :f] = kss.t()
+        copied(kct)
+        copied(kst)
+        # the kernel copies the spectra in 16-byte pieces from 16-byte aligned
+        # rows: pad each row with zeros to a multiple of a piece
+        per16 = 16 // sre.element_size()
+        tp = _ceil_div(t, per16) * per16
+        if tp != t:
+            sre, sim = (copied(F.pad(a, (0, tp - t))) for a in (sre, sim))
+        elif sre.data_ptr() % 16 or sim.data_ptr() % 16:
+            sre, sim = copied(sre.clone()), copied(sim.clone())
+        out = torch.empty((b, n + hop * (t - 1)), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            _run("nnaudio_synthesis_ola", sre.data_ptr(), sim.data_ptr(),
+                 kct.data_ptr(), kst.data_ptr(), out.data_ptr(), b, f, t, tp, n,
+                 hop, fp, int(bf16), _stream())
+        LAUNCHES["synthesis_ola"] += 1
+        return out
 
 
 class _SynthesisOLA(torch.autograd.Function):
@@ -722,9 +745,10 @@ class _Pair(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_re, g_im):
-        x, wcos, wsin = ctx.saved_tensors
-        return (*framed_pair_backward(x, wcos, wsin, g_re, g_im, ctx.hop,
-                                      ctx.needs_input_grad[:3]), None)
+        with span("nnaudio.K5.backward"):
+            x, wcos, wsin = ctx.saved_tensors
+            return (*framed_pair_backward(x, wcos, wsin, g_re, g_im, ctx.hop,
+                                          ctx.needs_input_grad[:3]), None)
 
 
 class _GLStep(torch.autograd.Function):

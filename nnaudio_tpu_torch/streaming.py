@@ -43,6 +43,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ._spans import span
 from .core.apply import project
 from .core.overlap import normalize_by_window_envelope, window_sumsquare
 from .features.base import to_float32
@@ -97,11 +98,12 @@ def _make_carry_step(width: int, hop: int, buf_cap: int, c: int, primed: int,
         raise RuntimeError(f"stream carry {new_primed} outside [0, {buf_cap}]")
 
     def step(params, buffer, chunk):
-        ext = (torch.cat((buffer[:, buffer.shape[1] - primed:], chunk), dim=-1)
-               if primed else chunk)
-        tail = ext[:, ext.shape[1] - new_primed:] if new_primed else ext[:, :0]
-        pad = buf_cap - new_primed
-        new_buffer = F.pad(tail, (pad, 0)) if pad else tail
+        with span("nnaudio.stream.carry"):
+            ext = (torch.cat((buffer[:, buffer.shape[1] - primed:], chunk), dim=-1)
+                   if primed else chunk)
+            tail = ext[:, ext.shape[1] - new_primed:] if new_primed else ext[:, :0]
+            pad = buf_cap - new_primed
+            new_buffer = F.pad(tail, (pad, 0)) if pad else tail
         if n_frames == 0:
             return new_buffer, empty_out(params, chunk.shape[0])
         sig = ext[:, : (n_frames - 1) * hop + width]
@@ -121,7 +123,14 @@ def _on_device(x, device: torch.device, what: str) -> torch.Tensor:
 class _StreamingFramed:
     """Shared chunked-analysis machinery for frame-local transforms.
     Subclasses call :meth:`_init_stream` and implement
-    ``_apply_sig(params, sig)`` / ``_empty_out(params, batch)``."""
+    ``_apply_sig(params, sig)`` / ``_empty_out(params, batch)``. While a
+    profiler runs, :meth:`step` is the span ``nnaudio.stream.step.<Class>``."""
+
+    _span_name = "nnaudio.stream.step._StreamingFramed"
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        cls._span_name = "nnaudio.stream.step." + cls.__name__
 
     def _init_stream(self, width: int, hop: int, params: dict, device,
                      fuse: bool | None = None) -> None:
@@ -151,18 +160,19 @@ class _StreamingFramed:
         """Consume one ``(B, C)`` chunk (``C % hop == 0``); return
         ``(new_state, frames)`` with the time axis sized ``C//hop`` once
         primed (first frames appear when ``width`` samples have arrived)."""
-        chunk = _on_device(chunk, self.device, "chunk")
-        if chunk.ndim == 1:
-            chunk = chunk[None]
-        c = chunk.shape[1]
-        if c % self.hop:
-            raise ValueError(f"chunk length {c} must be a multiple of hop={self.hop}")
-        fn, new_primed = _make_carry_step(
-            self.width, self.hop, self.buf_cap, c, state.primed,
-            self._apply_sig, self._empty_out)
-        with force_fuse(self.fuse):
-            new_buffer, frames = fn(self._params, state.buffer, chunk)
-        return StreamState(new_buffer, new_primed), frames
+        with span(self._span_name):
+            chunk = _on_device(chunk, self.device, "chunk")
+            if chunk.ndim == 1:
+                chunk = chunk[None]
+            c = chunk.shape[1]
+            if c % self.hop:
+                raise ValueError(f"chunk length {c} must be a multiple of hop={self.hop}")
+            fn, new_primed = _make_carry_step(
+                self.width, self.hop, self.buf_cap, c, state.primed,
+                self._apply_sig, self._empty_out)
+            with force_fuse(self.fuse):
+                new_buffer, frames = fn(self._params, state.buffer, chunk)
+            return StreamState(new_buffer, new_primed), frames
 
     # ------------------------------------------------- whole-signal helper
     def stream(self, x, chunk_len: int):

@@ -1,0 +1,344 @@
+"""The port's spans and counters on the CPU: off without a profiler, nested
+and counted under one, the self-time arithmetic, the operand-copy counter,
+``utils.trace``'s table, and the benchmark's readers of them on made-up
+tables and traces.
+
+The kernel route is driven on the CPU with each ``ctypes`` launch replaced
+by one that does nothing (``stubbed_launches``): the wrappers' checks,
+copies, allocations and spans run as on the card; their outputs are left
+unwritten, which no test here reads.
+"""
+import contextlib
+import json
+import threading
+import time
+from pathlib import Path
+from types import MappingProxyType
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from bench_port import harness, spans
+from bench_port import trace as bench_trace
+from nnaudio_tpu_torch import _spans, features, models, streaming
+from nnaudio_tpu_torch.ops import framed_kernels as fk
+from nnaudio_tpu_torch.utils import profiling
+
+ROOT = Path(__file__).resolve().parent.parent
+#: the cells' Mel (mel128_22k): its bank is 128 x 1025 fp32
+MEL = dict(sr=22050, n_fft=2048, hop_length=512, n_mels=128)
+FB_BYTES = 128 * 1025 * 4
+CALLS = {"mel": 2, "cqt": 2, "stream": 3, "train": 2}
+
+
+@contextlib.contextmanager
+def stubbed_launches():
+    """Every wrapper takes the branch of a CUDA tensor and each ``ctypes``
+    launch returns success without running."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fk, "_on_card", lambda t: True)
+        mp.setattr(fk, "_check_cuda", lambda t: None)
+        mp.setattr(fk, "_fn", lambda name: lambda *args: 0)
+        mp.setattr(fk, "_stream", lambda: 0)
+        mp.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+        yield
+
+
+class Workloads:
+    """The cells' entries at their settings, on the CPU, on short inputs."""
+
+    def __init__(self):
+        self.mel = features.MelSpectrogram(**MEL, verbose=False, device="cpu")
+        self.cqt = features.CQT1992v2(sr=22050, hop_length=512, n_bins=24, verbose=False,
+                                      device="cpu")
+        self.stream = streaming.StreamingMel(**MEL, device="cpu")
+        self.model = models.SpectrogramClassifier(n_classes=3, **MEL, device="cpu")
+        gen = torch.Generator().manual_seed(3)
+        self.x = torch.randn(2, 8192, generator=gen)
+        # contiguous chunks, as a stream's arrive
+        self.chunks = self.x.reshape(2, 4, 2048).transpose(0, 1).contiguous()
+        self.labels = torch.tensor([0, 2])
+
+    def run(self, which: str, calls: int = 1) -> None:
+        with torch.no_grad():
+            if which == "mel":
+                for _ in range(calls):
+                    self.mel(self.x)
+            elif which == "cqt":
+                for _ in range(calls):
+                    self.cqt(self.x)
+            elif which == "stream":
+                state = self.stream.init_state(2)
+                for s in range(calls):
+                    state, _ = self.stream.step(state, self.chunks[s])
+        if which == "train":
+            params = dict(self.model.init_params)
+            for _ in range(calls):
+                _, params = models.train_step(self.model, params, self.x, self.labels)
+
+
+@pytest.fixture(scope="module")
+def workloads():
+    return Workloads()
+
+
+@pytest.fixture(scope="module", params=["plain", "kernel"])
+def traced(request, workloads):
+    """``(route, events, table)``: every workload under one CPU profiler
+    session, on the plain route or the (stubbed) kernel route."""
+    route = contextlib.nullcontext() if request.param == "plain" else stubbed_launches()
+    with route, profile(activities=[ProfilerActivity.CPU]) as prof:
+        for which, n in CALLS.items():
+            workloads.run(which, n)
+    return request.param, prof.events(), profiling.span_table()
+
+
+def _port_parent(event):
+    event = event.cpu_parent
+    while event is not None and not event.name.startswith("nnaudio."):
+        event = event.cpu_parent
+    return None if event is None else event.name
+
+
+# ----------------------------------------------------------------- off --
+def test_without_a_profiler_span_returns_one_shared_object():
+    assert profiling.span("nnaudio.a") is profiling.span("nnaudio.b")
+    with profiling.span("nnaudio.a") as inside:
+        assert inside is None
+
+
+@pytest.mark.parametrize("which", list(CALLS))
+def test_without_a_profiler_nothing_is_recorded(workloads, which):
+    sessions = profiling.span_sessions()
+    before = dict(profiling.span_table()) if sessions else None
+    workloads.run(which)
+    assert profiling.span_sessions() == sessions
+    if sessions:
+        assert dict(profiling.span_table()) == before
+
+
+# ------------------------------------------------------------------ on --
+NESTING = {  # span -> the nearest port span around it (None: outermost)
+    "nnaudio.transform.MelSpectrogram": {None},
+    "nnaudio.transform.CQT1992v2": {None},
+    "nnaudio.stream.step.StreamingMel": {None},
+    "nnaudio.stream.carry": {"nnaudio.stream.step.StreamingMel"},
+    "nnaudio.train.step": {None},
+    "nnaudio.train.forward": {"nnaudio.train.step"},
+    "nnaudio.train.backward": {"nnaudio.train.step"},
+    "nnaudio.train.update": {"nnaudio.train.step"},
+}
+KERNEL_NESTING = {
+    "nnaudio.wrap.K2": {"nnaudio.transform.MelSpectrogram", "nnaudio.stream.step.StreamingMel"},
+    "nnaudio.launch.K2": {"nnaudio.wrap.K2"},
+    "nnaudio.wrap.K6": {"nnaudio.transform.CQT1992v2"},
+    "nnaudio.launch.K6": {"nnaudio.wrap.K6"},
+    "nnaudio.wrap.K5": {"nnaudio.train.forward"},
+    "nnaudio.launch.K5": {"nnaudio.wrap.K5"},
+    "nnaudio.K5.backward": {"nnaudio.train.backward"},
+}
+
+
+@pytest.mark.parametrize("name", list(NESTING) + list(KERNEL_NESTING))
+def test_spans_sit_in_the_profiler_events_nested_as_documented(traced, name):
+    route, events, _ = traced
+    found = [e for e in events if e.name == name]
+    if route == "plain" and name in KERNEL_NESTING:
+        assert not found  # a plain route crosses no wrapper
+        return
+    assert found
+    want = {**NESTING, **KERNEL_NESTING}[name]
+    assert {_port_parent(e) for e in found} <= want
+
+
+def test_self_times_add_up_to_the_outer_spans_total(traced):
+    _, _, table = traced
+    outer_total = sum(r.total_ns for r in table.values() if r.outer)
+    assert all(r.outer in (0, r.count) for r in table.values())
+    assert sum(r.self_ns for r in table.values()) == pytest.approx(outer_total, rel=0.01)
+    assert sum(r.outer for r in table.values()) == sum(CALLS.values())
+
+
+COUNTS = {"nnaudio.transform.MelSpectrogram": CALLS["mel"],
+          "nnaudio.transform.CQT1992v2": CALLS["cqt"],
+          "nnaudio.stream.step.StreamingMel": CALLS["stream"],
+          "nnaudio.stream.carry": CALLS["stream"],
+          "nnaudio.train.step": CALLS["train"], "nnaudio.train.forward": CALLS["train"],
+          "nnaudio.train.backward": CALLS["train"], "nnaudio.train.update": CALLS["train"]}
+KERNEL_COUNTS = {"nnaudio.wrap.K2": CALLS["mel"] + CALLS["stream"],
+                 "nnaudio.launch.K2": CALLS["mel"] + CALLS["stream"],
+                 "nnaudio.wrap.K6": CALLS["cqt"], "nnaudio.wrap.K5": CALLS["train"],
+                 "nnaudio.K5.backward": CALLS["train"]}
+
+
+@pytest.mark.parametrize("name", list(COUNTS) + list(KERNEL_COUNTS))
+def test_each_row_counts_the_calls(traced, name):
+    route, _, table = traced
+    if route == "plain" and name in KERNEL_COUNTS:
+        assert name not in table
+        return
+    assert table[name].count == {**COUNTS, **KERNEL_COUNTS}[name]
+
+
+def test_launches_and_copies_count_against_the_wrapper(traced):
+    route, _, table = traced
+    if route == "plain":
+        assert not any(r.launches or r.copies for r in table.values())
+        return
+    k2, k6, k5 = (table[f"nnaudio.wrap.{k}"] for k in ("K2", "K6", "K5"))
+    assert (k2.launches, k6.launches, k5.launches) == (k2.count, k6.count, k5.count)
+    # the mel bank's transpose, (128, 1025) fp32, once per call and step
+    assert (k2.copies, k2.copy_bytes) == (k2.count, k2.count * FB_BYTES)
+    assert (k6.copies, k5.copies) == (0, 0)
+    assert not table["nnaudio.launch.K2"].launches
+
+
+def test_self_time_arithmetic_on_a_made_up_nest():
+    def child():
+        with profiling.span("nnaudio.test.thread"):
+            time.sleep(0.004)
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("nnaudio.test.outer"):
+            time.sleep(0.002)
+            with profiling.span("nnaudio.test.inner"):
+                time.sleep(0.003)
+            worker = threading.Thread(target=child)
+            worker.start()
+            worker.join(timeout=30)
+    assert not worker.is_alive()
+    t = profiling.span_table()
+    outer, inner, other = (t[f"nnaudio.test.{k}"] for k in ("outer", "inner", "thread"))
+    assert outer.self_ns == outer.total_ns - inner.total_ns - other.total_ns
+    assert (inner.self_ns, other.self_ns) == (inner.total_ns, other.total_ns)
+    assert (outer.outer, inner.outer, other.outer) == (1, 0, 0)
+    assert other.total_ns >= 4e6 and outer.self_ns >= 2e6
+
+
+@pytest.mark.parametrize("make,copies", [
+    (lambda: torch.ones(3, 5).t(), 1),
+    (lambda: torch.ones(5, 3), 0),
+])
+def test_operand_records_a_copy_only_when_it_makes_one(make, copies):
+    t = make()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("nnaudio.wrap.K2"):
+            out = fk._operand(t, "t", 2, t.device)
+    row = profiling.span_table()["nnaudio.wrap.K2"]
+    assert (row.copies, row.copy_bytes) == (copies, copies * out.nbytes)
+    assert (out is t) == (copies == 0)
+
+
+@pytest.mark.parametrize("activities,records", [
+    ({ProfilerActivity.CPU, ProfilerActivity.CUDA}, True),
+    ({ProfilerActivity.CUDA}, False),
+    (set(), True),  # the NVTX and ITT modes
+])
+def test_a_session_starts_with_the_profiler_and_skips_records_it_would_not_keep(
+        monkeypatch, activities, records):
+    monkeypatch.setattr(_spans, "_records_host", [None])
+    before, enabled = profiling.span_sessions(), []
+    _spans._on_enable_profiler("config", activities, enable=lambda *a: enabled.append(a))
+    assert profiling.span_sessions() == before + 1 and enabled == [("config", activities)]
+    assert _spans._records_host[0] is records
+    monkeypatch.setattr(torch.autograd.profiler, "_is_profiler_enabled", True)
+    assert (profiling.span("nnaudio.test.session").rf is not None) is records
+
+
+def test_trace_hands_back_the_blocks_span_table(tmp_path, workloads):
+    with profiling.trace(str(tmp_path)) as where:
+        workloads.run("mel")
+    assert where == str(tmp_path)
+    assert where.spans["nnaudio.transform.MelSpectrogram"].count == 1
+    assert "nnaudio.transform.MelSpectrogram" in profiling.format_span_table(where.spans)
+    assert len(list(tmp_path.glob("*.json"))) == 1
+
+
+def test_the_readers_read_the_first_of_the_traced_stretches():
+    for name in ("nnaudio.test.device", "nnaudio.test.host"):
+        with profile(activities=[ProfilerActivity.CPU]):
+            with profiling.span(name):
+                pass
+    assert list(spans.device_stretch_table()) == ["nnaudio.test.device"]
+
+
+# ------------------------------------------------------------- readers --
+def _row(count, outer, total, self_, launches=0, copies=0, copy_bytes=0):
+    return profiling.SpanRow(count, outer, int(total), int(self_), launches, copies, copy_bytes)
+
+
+MADE_UP_TABLE = MappingProxyType({
+    "nnaudio.transform.MelSpectrogram": _row(4, 4, 4e6, 1e6),
+    "nnaudio.wrap.K2": _row(4, 0, 2e6, 1.2e6, 4, 4, 4 * FB_BYTES),
+    "nnaudio.launch.K2": _row(4, 0, 8e5, 8e5),
+    "nnaudio.stream.carry": _row(4, 0, 4e5, 4e5),
+})
+
+
+def _made_up_trace():
+    Launch = bench_trace.Launch
+    step = "nnaudio.stream.step.StreamingMel"
+    return bench_trace.Trace(
+        window_s=1.0, busy_s=0.5, kernel_s={},
+        launches=[Launch("framed_tc_kernel", 1e-3, ("nnaudio.launch.K2", "nnaudio.wrap.K2", step)),
+                  Launch("CatArrayBatchedCopy", 1e-5, ("aten::cat", "nnaudio.stream.carry", step)),
+                  Launch("fill", 1e-5, ("aten::fill_", "aten::pad", "nnaudio.stream.carry", step)),
+                  Launch("copy", 1e-5, ("aten::copy_", "aten::pad", "nnaudio.stream.carry", step))],
+        idle_by_host=[("harness, between calls", 0.003), ("nnaudio.wrap.K2", 0.002),
+                      ("aten::empty", 0.001), ("nnaudio.stream.carry", 0.001)],
+        stats={}, host_stats={"attempted": 4})
+
+
+READINGS = {  # each new reader on the made-up table and trace
+    "host_self_ms.transform.serve": 0.25, "host_self_ms.wrap.serve": 0.3,
+    "host_self_ms.launch.serve": 0.2, "operand_copy_mb_per_call.serve": 0.5248,
+    "idle_ms_per_call.port.serve": 0.75, "host_self_ms.carry.stream": 0.1,
+    "host_self_ms.wrap.stream": 0.3, "host_self_ms.launch.stream": 0.2,
+    "operand_copy_mb_per_step.stream": 0.5248, "carry_kernels_per_step.stream": 0.75,
+    "idle_ms_per_step.port.stream": 0.75, "idle_ms_per_step.port.train": 0.75,
+}
+
+
+def _context(trace):
+    return harness.Context(cell=None, window={}, trace=trace, work=None)
+
+
+@pytest.mark.parametrize("metric", list(READINGS))
+def test_reader_on_a_made_up_table_and_trace(monkeypatch, metric):
+    monkeypatch.setattr(spans, "device_stretch_table", lambda: MADE_UP_TABLE)
+    assert harness.reader(metric)(_context(_made_up_trace())) == pytest.approx(READINGS[metric])
+
+
+@pytest.mark.parametrize("metric", list(READINGS))
+def test_reader_of_a_port_without_spans_reads_nothing(monkeypatch, metric):
+    monkeypatch.setattr(spans, "device_stretch_table", lambda: None)
+    t = _made_up_trace()
+    t.launches = [bench_trace.Launch(l.kernel, l.seconds, ("aten::cat", "bench_port.call"))
+                  for l in t.launches]
+    t.idle_by_host = [("port Python inside a call", 0.005)]
+    assert harness.reader(metric)(_context(t)) is None
+
+
+def _perf_layers():
+    """The first column of the table of layers in PERF.md's section 3."""
+    section = (ROOT / "PERF.md").read_text().split("## 3. Layers", 1)[1].split("\n## ", 1)[0]
+    table = section.split("\n| Layer |", 1)[1].split("\n\n", 1)[0]
+    return {line.split("|")[1].strip() for line in table.splitlines()[2:]}
+
+
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+
+
+@pytest.mark.parametrize("metric", [m for m in BENCH["per_layer"]], ids=lambda m: m["name"])
+def test_every_per_layer_metric_has_a_reader_and_a_layer_of_perf_md(metric):
+    assert callable(harness.reader(metric["name"]))
+    assert metric["layer"] in _perf_layers()
+
+
+def test_every_new_reader_is_declared():
+    declared = {m["name"] for m in BENCH["per_layer"]}
+    assert set(READINGS) <= declared
+    assert np.all([m["layer"] == "port host path" for m in BENCH["per_layer"]
+                   if m["name"] in READINGS])
