@@ -31,7 +31,11 @@ from a fixed constant):
     launched (the compensated one where a row's sum is longer than 512
     steps: hop 3; the plain one up to it: the others); K1/K2/K4/K5 also at
     the chroma
-    shape (12 rows x 1025 bins);
+    shape (12 rows x 1025 bins). K2 has two routes: a frozen Fourier basis
+    (the slice shapes' bases) in fp32 storage takes its FFT route
+    (``csrc/framed_fft.cu``, counted as ``framed_filterbank_fft``), every
+    other basis and bf16 storage dense K2; each case also holds dense K2
+    itself against the plain version;
  4. the slice through the public entry points, with the launch counts set
     to 0 before each path and read after it:
     (a) the flagship SpectrogramClassifier answering 4 requests of
@@ -173,7 +177,22 @@ PROFILE_NAMES = {"framed_magnitude": "framed_tc_kernel",
                  "framed_filterbank": "framed_tc_kernel",
                  "synthesis_ola": "synthesis_tc_kernel", "gl_step": "framed_tc_kernel",
                  "framed_pair": "framed_tc_kernel",
-                 "framed_magnitude_kchunk": "kchunk_tc_kernel"}
+                 "framed_magnitude_kchunk": "kchunk_tc_kernel",
+                 "framed_filterbank_fft": "framed_fft_filterbank_kernel"}
+
+
+def k2_route(mode):
+    """The launch counter of K2 for a frozen Fourier basis in a precision
+    mode: its FFT route in fp32 storage, dense K2 in bf16 storage."""
+    return "framed_filterbank" if mode == "default" else "framed_filterbank_fft"
+
+
+def fft_frame_flops(n, nnz):
+    """The least operations of one frame of a frozen Fourier basis and a
+    filterbank (as ``bench_port/work`` counts them): a real FFT, 2.5 N log2 N,
+    3 a bin for the power, 2 for each nonzero entry of the filterbank."""
+    return 2.5 * n * np.log2(n) + 3 * (n // 2 + 1) + 2 * nnz
+
 
 
 def log(*a):
@@ -436,6 +455,13 @@ def main() -> int:
     from nnaudio_tpu_torch.models import SpectrogramClassifier
     from nnaudio_tpu_torch.ops import build, dispatch as td, framed_kernels as fk
 
+    def dense_k2(x, wc, ws, fb, hop, eps=0.0):
+        """Dense K2 (``framed_tc`` FILTERBANK) whatever the basis, inside the
+        wrapper's span, as ``framed_filterbank`` launches it for every basis
+        that its FFT route does not take."""
+        with fk.span("nnaudio.wrap.K2"):
+            return fk._launch_filterbank(x, wc, ws, fb, hop, eps)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -515,7 +541,11 @@ def main() -> int:
             k1p = fk.framed_magnitude(x, wc, ws, hop, square=True)
             torch.cuda.synchronize()
             p1p = fk.framed_magnitude_plain(x, wc, ws, hop, square=True)
-            k2 = fk.framed_filterbank(x, wc, ws, fb, hop, eps=1e-8)
+            route = fk.FFTRoute()
+            k2 = fk.framed_filterbank(x, wc, ws, fb, hop, eps=1e-8, fft=route)
+            k2d = dense_k2(x, wc, ws, fb, hop, eps=1e-8)
+            k2_key = ("framed_filterbank_fft" if route.plan(wc, ws, fb) is not None
+                      else "framed_filterbank")
             torch.cuda.synchronize()
             p2 = fk.framed_filterbank_plain(x, wc, ws, fb, hop, eps=1e-8)
             t = k1.shape[-1]
@@ -530,20 +560,20 @@ def main() -> int:
             torch.cuda.synchronize()
             p5 = pair_grads(fk.framed_pair_plain, x, wc, ws, hop, g_re, g_im)
             errs = {"K1": rel_err(k1, p1), "K1 power": rel_err(k1p, p1p),
-                    "K2": rel_err(k2, p2), "K3": rel_err(k3, p3),
+                    "K2": rel_err(k2, p2), "K2 dense": rel_err(k2d, p2), "K3": rel_err(k3, p3),
                     "K5": max(rel_err(k5[i], p5[i]) for i in (0, 1)),
                     "K5 grads": max(rel_err(k5[i], p5[i]) for i in (2, 3, 4))}
             slice_fp32 = mode == "highest" and label.startswith("slice")
             if slice_fp32:
                 for k, got, ref in (("framed_magnitude", k1, p1),
                                     ("framed_magnitude", k1p, p1p),
-                                    ("framed_filterbank", k2, p2),
+                                    (k2_key, k2, p2), ("framed_filterbank", k2d, p2),
                                     ("synthesis_ola", k3, p3),
                                     ("framed_pair", k5[0], p5[0]),
                                     ("framed_pair", k5[1], p5[1])):
                     max_abs[k] = max(max_abs[k], float((got - ref).abs().max()))
             ok = all(e <= TOL[mode] for e in errs.values())
-            del k1, p1, k1p, p1p, k2, p2, k3, p3, k5, p5, g_re, g_im
+            del k1, p1, k1p, p1p, k2, k2d, p2, k3, p3, k5, p5, g_re, g_im
             # K4 in both carry types on random magnitudes and carries
             S = torch.rand(b, wc.shape[0], t, generator=gen, device=dev)
             for carry in (torch.float32, torch.bfloat16):
@@ -1029,7 +1059,7 @@ def main() -> int:
         inv2, gl2 = inverse_mel(2), griffin_lim(2)
         drive("(e) mel -> audio, 2 Griffin-Lim iterations",
               lambda: inv2(mel_e(xh)), shape_e, tol=GL_TOL["default"],
-              expect={"framed_filterbank": 1, "gl_step": 2, "synthesis_ola": 3})
+              expect={k2_route("highest"): 1, "gl_step": 2, "synthesis_ola": 3})
         S_f = st_f(xh)
         drive("(f) Griffin-Lim fp32, 2 iterations", lambda: gl2(S_f), shape_f,
               tol=GL_TOL["highest"],
@@ -1041,7 +1071,7 @@ def main() -> int:
         target_e = inv.mel_to_power(inv.params, mel).sqrt()
         for label, fn, shape, st, target, expect in (
                 ("(e) mel -> audio", lambda: inv(mel_e(xh)), shape_e, st_e,
-                 target_e, {"framed_filterbank": 1, "gl_step": n_iter,
+                 target_e, {k2_route("highest"): 1, "gl_step": n_iter,
                             "synthesis_ola": n_iter + 1}),
                 ("(f) Griffin-Lim fp32", lambda: gl(S_f), shape_f, st_f, S_f,
                  {"framed_pair": n_iter, "synthesis_ola": n_iter + 1})):
@@ -1331,7 +1361,7 @@ def main() -> int:
         for label, (layer, layer_t, basis, rows) in frontends.items():
             with torch.no_grad():
                 drive(f"(m) {label} {mode}", lambda: layer(xm), (batch, rows, 431),
-                      expect={"framed_filterbank": 1})
+                      expect={k2_route(mode): 1})
                 ms = cuda_ms(lambda: layer(xm))
             results[f"m_{label}_{mode}_audio_s_per_s"] = batch * secs / (ms / 1e3)
             log(f"[serve] (m) {label} {mode}: {batch} x {secs} s in {ms:.3f} ms = "
@@ -1732,6 +1762,8 @@ def main() -> int:
     for mode in ("highest", "default"):
         config.set_matmul_precision(mode)
         for label, make, kernel, feed, axis, offline, tol_key in stream_specs:
+            if kernel == "framed_filterbank":
+                kernel = k2_route(mode)
             s = make(None)
             synthesis = axis == 1
             with torch.no_grad():
@@ -1817,6 +1849,7 @@ def main() -> int:
     fb_s = MelSpectrogram(n_mels=128, verbose=False, device=dev).mel_basis
     wc_s, ws_s = fourier(2048)
     f1, n1 = wc_s.shape
+    nnz_s = int((fb_s != 0).sum())
     s_rows = {}
     for mode in ("highest", "default"):
         config.set_matmul_precision(mode)
@@ -1839,11 +1872,12 @@ def main() -> int:
                  esz * (x1k.numel() + 2 * f1 * n1) + 8 * batch * f1 * t_s,
                  f"B={batch} T={t_s} F={f1} N={n1} hop=512", t_s),
                 ("K2 framed_filterbank",
-                 lambda: fk.framed_filterbank(x1k, wc_s, ws_s, fb_s, 512),
+                 lambda: dense_k2(x1k, wc_s, ws_s, fb_s, 512),
                  lambda: fk.framed_filterbank_plain(x1k, wc_s, ws_s, fb_s, 512),
                  4 * batch * t_s * f1 * n1 + 2 * batch * t_s * f1 * 128,
                  esz * (x1k.numel() + 2 * f1 * n1 + 128 * f1) + 4 * batch * 128 * t_s,
                  f"B={batch} T={t_s} F={f1} N={n1} M=128 hop=512", t_s),
+
                 ("K6 framed_magnitude_kchunk",
                  lambda: fk.framed_magnitude_kchunk(x6k, wc_cqt, ws_cqt, 512),
                  lambda: fk.framed_magnitude_plain(x6k, wc_cqt, ws_cqt, 512),
@@ -1852,6 +1886,15 @@ def main() -> int:
                  f"B={batch} T={t_s} F=84 N={n_cqt} hop=512 "
                  f"splits={fk.kchunk_plan(batch, t_s, n_cqt)}", t_s),
             ]
+            if mode == "highest":  # K2's FFT route: fp32 storage only
+                route_s = fk.FFTRoute()
+                cases_s.append((
+                    "K2 FFT route",
+                    lambda: fk.framed_filterbank(x1k, wc_s, ws_s, fb_s, 512, fft=route_s),
+                    lambda: fk.framed_filterbank_plain(x1k, wc_s, ws_s, fb_s, 512),
+                    batch * t_s * fft_frame_flops(n1, nnz_s),
+                    4 * (x1k.numel() + batch * 128 * t_s),
+                    f"B={batch} T={t_s} F={f1} N={n1} M=128 hop=512", t_s))
             for syn, hop_k, name_k in ((s_istft, 512, "iSTFT"), (s_icqt, 128, "inverse CQT (h)")):
                 t_k = t_s if hop_k == 512 else 4 * t_s
                 f3, n3 = syn._kc.shape
@@ -2067,7 +2110,7 @@ def main() -> int:
             b2, length2 = x2.shape
             f2, n2, t2, m2 = 513, 1024, 626, 64
             rows["framed_filterbank"] = dict(
-                ms=kernel_ms(lambda: fk.framed_filterbank(x2, wc2, ws2, fb, 256, eps=1e-8)),
+                ms=kernel_ms(lambda: dense_k2(x2, wc2, ws2, fb, 256, eps=1e-8)),
                 plain_ms=kernel_ms(lambda: fk.framed_filterbank_plain(x2, wc2, ws2, fb, 256, eps=1e-8)),
                 library_ms=kernel_ms(lambda: fb @ (stft_lib(x2, 1024, 256, win2).abs() ** 2 + 1e-8)),
                 flops=4 * b2 * t2 * f2 * n2 + 2 * b2 * t2 * f2 * m2,
@@ -2077,12 +2120,27 @@ def main() -> int:
             fb_c = MelSpectrogram(sr=sr_b, n_fft=2048, hop_length=512, n_mels=128,
                                   verbose=False, device=dev).mel_basis
             rows["framed_filterbank (c)"] = dict(
-                ms=kernel_ms(lambda: fk.framed_filterbank(x, wc, ws, fb_c, 512, eps=1e-8)),
+                ms=kernel_ms(lambda: dense_k2(x, wc, ws, fb_c, 512, eps=1e-8)),
                 plain_ms=kernel_ms(lambda: fk.framed_filterbank_plain(x, wc, ws, fb_c, 512, eps=1e-8)),
                 library_ms=kernel_ms(lambda: fb_c @ (stft_lib(x, 2048, 512, win).abs() ** 2 + 1e-8)),
                 flops=flops + 2 * b * t * f * 128,
                 bytes=esz * (b * length + 2 * f * n + 128 * f) + 4 * b * 128 * t,
                 shape=f"B={b} L={length} n_fft={n} hop=512 F={f} T={t} M=128")
+            if mode == "highest":
+                # K2's FFT route at (c), the Mel cells' call: its bound counts
+                # a real FFT of each frame and the bank's nonzero entries
+                nnz_c = int((fb_c != 0).sum())
+                route_c = fk.FFTRoute()
+                rows["framed_filterbank_fft"] = dict(
+                    ms=kernel_ms(lambda: fk.framed_filterbank(x, wc, ws, fb_c, 512,
+                                                              fft=route_c)),
+                    plain_ms=kernel_ms(lambda: fk.framed_filterbank_fft_plain(x, wc, ws, fb_c, 512)),
+                    library_ms=kernel_ms(lambda: fb_c @ stft_lib(x, 2048, 512, win).abs() ** 2),
+                    library="fb @ torch.stft().abs() ** 2",
+                    flops=b * t * fft_frame_flops(n, nnz_c),
+                    bytes=4 * (b * length + 128 * b * t),
+                    shape=f"B={b} L={length} n_fft={n} hop=512 F={f} T={t} M=128, "
+                          f"{nnz_c} nonzero")
             # K3 at (d): synthesis 2048/512, B=32, T=431, F=1025; and at (e):
             # mel -> audio's 1024/256, T=862, F=513
             def fold_lib(sre, sim, kc, ks, hop):
@@ -2261,6 +2319,8 @@ def main() -> int:
         "framed_pair": (tensor_core, "nnaudio_tpu/ops/framed_matmul.py:205", "highest"),
         "framed_magnitude_kchunk": ("nnaudio_tpu_torch/csrc/framed_kchunk.cu",
                                     "nnaudio_tpu/ops/framed_matmul.py:482", "highest"),
+        "framed_filterbank_fft": ("nnaudio_tpu_torch/csrc/framed_fft.cu",
+                                  "nnaudio_tpu/ops/framed_matmul.py:296", "highest"),
     }
     kernels = []
     for k, (src, replaces, mode) in meta.items():

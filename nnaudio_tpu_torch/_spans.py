@@ -16,7 +16,10 @@ can import it without loading ``utils``, which loads on first use.
   name keeps the count, the host time (``time.perf_counter_ns``), the self
   time (the time minus what the span's child spans cover) and the counters
   attributed to the innermost open span: kernel launches
-  (:func:`note_launch`) and operand copies (:func:`copied`). A span opened on
+  (:func:`note_launch`) and operand copies (:func:`copied`). A kernel with
+  two routes counts each dispatch in a row of the route's own
+  (:func:`note_route`, ``nnaudio.route.K2.fft`` or ``.dense``), which holds
+  a count and nothing else. A span opened on
   a thread with none open (autograd runs a backward on a thread of its own)
   is the child of the span opened last on any thread that is still open.
 
@@ -50,6 +53,8 @@ class SpanRow(NamedTuple):
 
 
 _COUNT, _OUTER, _TOTAL, _SELF, _LAUNCHES, _COPIES, _COPY_BYTES = range(7)
+#: the rows of :func:`note_route`
+ROUTE_PREFIX = "nnaudio.route."
 _OFF = contextlib.nullcontext()
 _sessions: list[dict[str, list]] = []
 _records_host = [True]        # whether the latest session keeps host operations
@@ -119,6 +124,19 @@ def span(name: str):
     s.row = table.get(name) or table.setdefault(name, [0] * len(SpanRow._fields))
     s.rf = _RecordFunction(name) if _records_host[0] else None
     return s
+
+
+def note_route(name: str) -> None:
+    """While tracing, count one dispatch that took the route ``name`` (of a
+    kernel that has more than one: ``K2.fft``, ``K2.dense``) as the row
+    ``nnaudio.route.<name>`` of the session's table, which holds that count
+    alone."""
+    if _profiler._is_profiler_enabled:
+        if not _sessions:
+            _sessions.append({})
+        name = ROUTE_PREFIX + name
+        table = _sessions[-1]
+        (table.get(name) or table.setdefault(name, [0] * len(SpanRow._fields)))[_COUNT] += 1
 
 
 def _innermost():

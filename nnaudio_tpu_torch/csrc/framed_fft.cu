@@ -1,0 +1,518 @@
+// K2's FFT route on Hopper (sm_90a): for a frozen Fourier basis, a real FFT
+// of each frame, its power and a banded filterbank projection in one pass,
+// on the CUDA cores.
+//
+// Stands beside nnaudio_tpu/ops/framed_matmul.py:
+//   K2  _filterbank_kernel  :296  (launched by _framed_filterbank)
+// which computes the pair as a dense product with the bases, as the port's
+// dense K2 (framed_tc.cu FILTERBANK) does. Where the pair is the windowed DFT
+// of its window w = wcos[0] (ops/framed_kernels.py, build_fft_plan, checks
+// every entry once per basis), this kernel computes
+//   out[b,m,t] = sum_f fb[m,f] * (|rfft(w * x[b, t*hop : t*hop + N])[f]|^2 + eps)
+// for fp32 storage and N a power of two in [64, 8192], with no (B, F, T)
+// tensor, no workspace and no second kernel. Any other basis keeps the dense
+// tensor-core K2 (framed_tc.cu FILTERBANK).
+//
+// What bounds it on the H100 (67 TFLOP/s fp32 on the CUDA cores, 3.35 TB/s
+// HBM): at the Mel defaults (B=32, T=431, N=2048, M=128, 2,018 nonzero
+// filterbank entries) a frame takes ~5 N/2 log2(N/2) operations of complex
+// FFT, ~20 a pair of bins to unpack and square, 2 per nonzero entry: ~0.8
+// GFLOP a call, 12 us at the fp32 peak; the signal read once and the output
+// written once are 35.3 MB, 10.5 us. Neither is reached (~0.067 ms): a frame
+// crosses shared memory twice in the FFT and once each to unpack and to
+// project, at two blocks of 128-register threads an SM, and the time goes to
+// those passes' latency and to the banded projection's rows of unequal
+// length (builds without each part, timed on an H100: the passes after the
+// first ~0.014 ms, the projection ~0.016, the frames' loads ~0.010).
+//
+// Design:
+// - Frames are the flattened (b, t) index. A block takes FPB frames at a
+//   time (C where that is enough to give every resident block some: a stream
+//   step's few frames), every gridDim.x FPB frames, in rounds of C frames in
+//   flight, one frame to a team of P = N/64 threads. A frame's arithmetic
+//   does not depend on which block, team or round takes it, so the result
+//   does not depend on B, T or the batch's split into stream steps.
+// - The real FFT is an N/2-point complex FFT of z[j] = (w x)[2j] + i (w x)[2j+1]
+//   by Stockham passes of radix 32 (the last one fewer where log2(N/2)
+//   asks). Each thread holds 32 points in registers, turns them by the
+//   pass's twiddles (a table built in float64 on the host, stored as fp32;
+//   W_32's constants are the same values), runs a radix-2
+//   decimation-in-frequency DFT on them and, after its team's barrier,
+//   writes them to their places in natural order in the team's buffer in
+//   shared memory, with a pad after every 16 points so that the strided
+//   accesses fall on distinct banks. The first pass reads its points from
+//   device memory, windowed on the way; the team's next frame is read while
+//   the block projects the frames before it. Then each pair of bins f and
+//   N/2 - f is unpacked from Z[f] and Z[N/2 - f] (E = Z[f] + conj Z[N/2-f],
+//   O = Z[f] - conj Z[N/2-f]: bin f is E - i W_N^f O, bin N/2 - f is
+//   E + i W_N^f O) and squared; the power goes back into the buffer.
+// - The projection reads the filterbank as bands: per row the range of its
+//   nonzero columns and their values (2,018 entries for Slaney mel-128 at
+//   n_fft 2048, not 131,200), kept in shared memory where they fit; a dense
+//   filterbank has full-width bands. A thread takes one row of FG = 2
+//   frames at a time (at the Mel defaults rows m and m + 64: a short band
+//   beside a long one), each row's terms summed in four partial sums by
+//   index mod 4, each in order, then (s0 + s1) + (s2 + s3). Rows of the block's frames go to a
+//   tile in shared memory, written to (B, M, T) once the block's FPB frames
+//   are done: a row in runs of FPB frames (64 bytes) where the frames of a
+//   batch item lie side by side.
+// - Fixed summation order, no atomics: every run gives the same bits.
+// ops/framed_kernels.py's framed_filterbank_fft_plain repeats this
+// arithmetic in PyTorch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int RADIX = 32;         // points a thread holds in a pass
+constexpr int MAX_THREADS = 256;  // threads of a block, at most
+constexpr int MAX_TEAMS = 32;     // frames in flight in a block, at most
+constexpr int RUN = 16;           // frames a block takes at a time where the grid is full
+constexpr int MIN_BLOCKS = 2;     // blocks an SM holds at least: at most 128 registers
+constexpr int PROJECT_FRAMES = 2; // frames a thread projects at once, at most
+constexpr int SMEM_LIMIT = 232448;
+constexpr int MAX_DEVICES = 64;
+
+__host__ __device__ constexpr int ilog2(int v) { return v > 1 ? 1 + ilog2(v / 2) : 0; }
+
+template <int LOG2H>
+struct Shape {
+  static constexpr int H = 1 << LOG2H;            // complex points of a frame
+  static constexpr int N = 2 * H;                 // samples of a frame
+  static constexpr int P = H / RADIX;             // threads of a frame's team
+  static constexpr int C = MAX_THREADS / P < MAX_TEAMS ? MAX_THREADS / P : MAX_TEAMS;
+  static constexpr int THREADS = P * C;           // threads of a block
+  static constexpr int LOG2C = ilog2(C);          // C frames in flight in a block
+  static constexpr int FPB = C > RUN ? C : RUN;   // frames of a block, at most
+  static constexpr int FG = C < PROJECT_FRAMES ? C : PROJECT_FRAMES;  // frames a thread projects
+  static constexpr int STRIDE = H + H / 16 + 1;   // float2 of a frame's buffer
+};
+
+// Where a pass's twiddles start in the table (ops/framed_kernels.py,
+// fft_twiddles): after the N/2 + 1 of the unpacking, Ns (R - 1) for each
+// earlier pass with Ns > 1; at ns_log = LOG2H, the table's length.
+__host__ __device__ constexpr int pass_offset(int log2h, int ns_log) {
+  int at = (1 << log2h) + 1;
+  for (int s = 0; s < ns_log;) {
+    const int rlog = log2h - s < ilog2(RADIX) ? log2h - s : ilog2(RADIX);
+    if (s > 0) at += (1 << s) * ((1 << rlog) - 1);
+    s += rlog;
+  }
+  return at;
+}
+
+// Shared memory of a block: the destination offsets of the FPB frames it
+// takes at a time, the C frames in flight, the output tile, the bands'
+// ranges, and (vals > 0) the bands' entries.
+template <int LOG2H>
+constexpr size_t smem_bytes(int m, int vals) {
+  using S = Shape<LOG2H>;
+  return 8 * S::FPB + 8 * S::C * S::STRIDE + 4 * static_cast<size_t>(m) * S::FPB +
+         4 * (2 * static_cast<size_t>(m) + 1) + 4 * static_cast<size_t>(vals);
+}
+
+__device__ __forceinline__ int pad16(int i) { return i + (i >> 4); }
+
+// pad16(i + q * STEP), with pad16(i) given: folded where STEP is a multiple
+// of 16
+template <int STEP>
+__device__ __forceinline__ int pad16_add(int i, int padded, int q) {
+  if constexpr (STEP % 16 == 0) return padded + q * (STEP + STEP / 16);
+  else return pad16(i + q * STEP);
+}
+
+// The barrier of a frame's team of P threads: named barrier 1 + team where
+// a team is several warps of a block of several teams, the block's or the
+// warp's own where it is the block or lies inside one warp.
+template <int P, int THREADS>
+__device__ __forceinline__ void team_sync(int team) {
+  if constexpr (P >= THREADS) {
+    __syncthreads();
+  } else if constexpr (P > 32) {
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + team), "r"(P) : "memory");
+  } else {
+    __syncwarp();
+  }
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+
+// cos(2 pi t / 32) for t in [0, 8] in fp32, each rounded once from float64
+// as the host's twiddle table holds them (tests/test_torch_fft_filterbank.py
+// holds the two equal)
+__device__ __forceinline__ constexpr float cos32(int t) {
+  return t == 0 ? 1.0f
+       : t == 1 ? 0x1.f6297cp-1f
+       : t == 2 ? 0x1.d906bcp-1f
+       : t == 3 ? 0x1.a9b662p-1f
+       : t == 4 ? 0x1.6a09e6p-1f
+       : t == 5 ? 0x1.1c73b4p-1f
+       : t == 6 ? 0x1.87de2ap-2f
+       : t == 7 ? 0x1.8f8b84p-3f
+       : 0.0f;
+}
+
+// W_32^t = exp(-2 pi i t / 32) for t in [0, 16)
+__device__ __forceinline__ constexpr float2 w32(int t) {
+  return t <= 8 ? float2{cos32(t), -cos32(8 - t)} : float2{-cos32(16 - t), -cos32(t - 8)};
+}
+
+template <int BITS>
+__device__ __forceinline__ int bitrev(int q) {
+  return static_cast<int>(__brev(static_cast<unsigned>(q)) >> (32 - BITS));
+}
+
+// R points in registers -> their DFT, v[s] holding output bitrev(s):
+// radix 2, decimation in frequency, from the widest half (HALF = R / 2) to
+// the narrowest; d * W_2half^i is d * W_32^(16i/half), a swap for -i.
+template <int R, int HALF = R / 2>
+__device__ __forceinline__ void dft(float2 (&v)[R]) {
+  if constexpr (HALF >= 1) {
+#pragma unroll
+    for (int b = 0; b < R; b += 2 * HALF) {
+#pragma unroll
+      for (int i = 0; i < HALF; ++i) {
+        const float2 a = v[b + i], c = v[b + i + HALF];
+        v[b + i] = make_float2(a.x + c.x, a.y + c.y);
+        const float2 d = make_float2(a.x - c.x, a.y - c.y);
+        const int t = i * (16 / HALF);
+        v[b + i + HALF] = t == 0 ? d : t == 8 ? make_float2(d.y, -d.x) : cmul(d, w32(t));
+      }
+    }
+    dft<R, HALF / 2>(v);
+  }
+}
+
+// v[r] (r < R) of the butterfly j of a pass with Ns = 2^NS_LOG, after its
+// DFT, to its places (j / Ns) Ns R + j % Ns + q Ns in z; Ns is 1 (the first
+// pass, whose radix is RADIX) or a multiple of 16.
+template <int RLOG, int NS_LOG>
+__device__ __forceinline__ void put(float2* z, int j, const float2 (&v)[1 << RLOG]) {
+  constexpr int R = 1 << RLOG, NS = 1 << NS_LOG;
+  static_assert(NS == 1 ? R == RADIX : NS % 16 == 0, "padded strides");
+  const int base = ((j >> NS_LOG) << (NS_LOG + RLOG)) + (j & (NS - 1));
+  const int pb = pad16(base);
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int q = bitrev<RLOG>(s);
+    z[NS == 1 ? pb + pad16(q) : pb + q * (NS + NS / 16)] = v[s];
+  }
+}
+
+// The Stockham passes after the first, from Ns = 2^NS_LOG on, on the team's
+// buffer z; thread p of the team takes the butterflies j = p + q P. Each
+// pass ends at the team's barrier.
+template <int LOG2H, int NS_LOG>
+__device__ __forceinline__ void fft_passes(float2* z, int p, int team,
+                                           const float2* __restrict__ twiddle) {
+  if constexpr (NS_LOG < LOG2H) {
+    using S = Shape<LOG2H>;
+    constexpr int RLOG = LOG2H - NS_LOG < ilog2(RADIX) ? LOG2H - NS_LOG : ilog2(RADIX);
+    constexpr int R = 1 << RLOG, NS = 1 << NS_LOG, M = S::H / R, NB = RADIX / R;
+    const float2* ptw = twiddle + pass_offset(LOG2H, NS_LOG);
+    float2 v[NB][R];
+#pragma unroll
+    for (int q = 0; q < NB; ++q) {
+      const int j = p + q * S::P, pj = pad16(j);
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[q][r] = z[pad16_add<M>(j, pj, r)];
+      const float2* t = ptw + (j & (NS - 1)) - NS;
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[q][r] = cmul(v[q][r], __ldg(t + r * NS));
+      dft<R>(v[q]);
+    }
+    team_sync<S::P, S::THREADS>(team);
+#pragma unroll
+    for (int q = 0; q < NB; ++q) put<RLOG, NS_LOG>(z, p + q * S::P, v[q]);
+    team_sync<S::P, S::THREADS>(team);
+    fft_passes<LOG2H, NS_LOG + RLOG>(z, p, team, twiddle);
+  }
+}
+
+// Thread p's points p + r H/RADIX of frame g (zeros past the frames), raw:
+// the first pass reads them from device memory.
+template <int LOG2H>
+__device__ __forceinline__ void fetch(float2 (&v)[RADIX], const float* __restrict__ x, int g,
+                                      int frames, int T, int L, int hop, int p) {
+  using S = Shape<LOG2H>;
+  constexpr int M = S::H / RADIX;
+  const int b = g / T;
+  const float* a = x + static_cast<long long>(b) * L + static_cast<long long>(g - b * T) * hop +
+                   2 * p;
+  const bool inside = g < frames, paired = (reinterpret_cast<uintptr_t>(a) & 7) == 0;
+#pragma unroll
+  for (int r = 0; r < RADIX; ++r) {
+    const float* c = a + 2 * r * M;
+    v[r] = !inside ? make_float2(0.f, 0.f)
+         : paired  ? __ldg(reinterpret_cast<const float2*>(c))
+                   : make_float2(__ldg(c), __ldg(c + 1));
+  }
+}
+
+// A round's C frames, their power in buf, projected onto the bands into the
+// tile: a thread takes one row of FG frames; a frame's row sums its terms e
+// in four partial sums by e mod 4, each in order, then (s0 + s1) + (s2 + s3).
+// fbv is the bands' entries in shared memory or in device memory: each call
+// is inlined with its own kind of load.
+template <int LOG2H>
+__device__ __forceinline__ void project(const float2* buf, const int* bands,
+                                        const float* fbv, float* tile, int M, int fpb,
+                                        int round) {
+  using S = Shape<LOG2H>;
+  constexpr int FG = S::FG, GROUPS = S::C / FG;
+  for (int o = threadIdx.x; o < GROUPS * M; o += S::THREADS) {
+    const int m = o / GROUPS, i0 = (o % GROUPS) * FG;
+    const float* power = reinterpret_cast<const float*>(buf + i0 * S::STRIDE) + bands[m];
+    const int e0 = bands[M + m], n = bands[M + m + 1] - e0;
+    const float* fv = fbv + e0;
+    float acc[4][FG];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int k = 0; k < FG; ++k) acc[u][k] = 0.f;
+    int e = 0;
+    for (; e + 4 <= n; e += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float a = fv[e + u];
+#pragma unroll
+        for (int k = 0; k < FG; ++k)
+          acc[u][k] = fmaf(a, power[k * 2 * S::STRIDE + e + u], acc[u][k]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      if (e + u < n) {
+        const float a = fv[e + u];
+#pragma unroll
+        for (int k = 0; k < FG; ++k)
+          acc[u][k] = fmaf(a, power[k * 2 * S::STRIDE + e + u], acc[u][k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < FG; ++k)
+      tile[m * fpb + round * S::C + i0 + k] = (acc[0][k] + acc[1][k]) + (acc[2][k] + acc[3][k]);
+  }
+}
+
+template <int LOG2H>
+__global__ void __launch_bounds__(Shape<LOG2H>::THREADS, MIN_BLOCKS)
+framed_fft_filterbank_kernel(const float* __restrict__ x, const float* __restrict__ window,
+                             const float2* __restrict__ twiddle,
+                             const int* __restrict__ band, const float* __restrict__ vals,
+                             float* __restrict__ out, int L, int hop, int T, int M, int nnz,
+                             int frames, int rounds, float eps) {
+  using S = Shape<LOG2H>;
+  constexpr int MP = S::H / RADIX;  // the first pass's stride, in points
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long* dst = reinterpret_cast<long long*>(smem);              // FPB
+  float2* buf = reinterpret_cast<float2*>(dst + S::FPB);            // C frames of STRIDE
+  float* tile = reinterpret_cast<float*>(buf + S::C * S::STRIDE);  // M rows of FPB
+  int* bands = reinterpret_cast<int*>(tile + M * S::FPB);           // 2M + 1
+  float* svals = reinterpret_cast<float*>(bands + 2 * M + 1);       // nnz, or none
+
+  const int tid = threadIdx.x;
+  const int fpb = S::C * rounds;
+  const int log2fpb = __ffs(fpb) - 1;
+  const int team = tid / S::P, p = tid % S::P;
+  float2* z = buf + team * S::STRIDE;
+  float* zp = reinterpret_cast<float*>(z);
+  // the block takes fpb frames at a time, [g0, g0 + fpb), every gridDim.x
+  // fpb frames; the raw points of the team's next frame are read while the
+  // frames before it are projected
+  float2 v[RADIX];
+  fetch<LOG2H>(v, x, blockIdx.x * fpb + team, frames, T, L, hop, p);
+  for (int i = tid; i < 2 * M + 1; i += S::THREADS) bands[i] = band[i];
+  for (int i = tid; i < nnz; i += S::THREADS) svals[i] = vals[i];
+
+  for (int g0 = blockIdx.x * fpb; g0 < frames; g0 += gridDim.x * fpb) {
+    for (int round = 0; round < rounds; ++round) {
+      // the first pass, from the points as read: windowed, its DFT, placed
+#pragma unroll
+      for (int r = 0; r < RADIX; ++r) {
+        const float2 w = __ldg(reinterpret_cast<const float2*>(window) + p + r * MP);
+        v[r] = make_float2(v[r].x * w.x, v[r].y * w.y);
+      }
+      dft<RADIX>(v);
+      put<ilog2(RADIX), 0>(z, p, v);
+      team_sync<S::P, S::THREADS>(team);
+      fft_passes<LOG2H, ilog2(RADIX)>(z, p, team, twiddle);
+
+      // unpack and square, two bins from one pair of points: for f = p + q P
+      // in [0, N/4], bin f is E - i W_N^f O and bin N/2 - f is E + i W_N^f O
+      // (bin N/4 once, by thread 0)
+      constexpr int PAIRS = RADIX / 2 + 1;
+      float lower[PAIRS], upper[PAIRS];
+      const int pp = pad16(p);
+#pragma unroll
+      for (int q = 0; q < PAIRS; ++q) {
+        const int f = p + q * S::P;
+        if (q < PAIRS - 1 || p == 0) {
+          const float2 a = z[pad16_add<S::P>(p, pp, q)], c = z[pad16((S::H - f) & (S::H - 1))];
+          const float er = a.x + c.x, ei = a.y - c.y;
+          const float2 wo = cmul(make_float2(a.x - c.x, a.y + c.y), __ldg(twiddle + f));
+          const float lr = er + wo.y, li = ei - wo.x, ur = er - wo.y, ui = ei + wo.x;
+          lower[q] = (lr * lr + li * li) * 0.25f + eps;
+          upper[q] = (ur * ur + ui * ui) * 0.25f + eps;
+        }
+      }
+      team_sync<S::P, S::THREADS>(team);
+#pragma unroll
+      for (int q = 0; q < PAIRS; ++q) {
+        const int f = p + q * S::P;
+        if (q < PAIRS - 1) {
+          zp[f] = lower[q];
+          zp[S::H - f] = upper[q];
+        } else if (p == 0) {
+          zp[f] = lower[q];
+        }
+      }
+      const int next = round + 1 < rounds ? g0 + (round + 1) * S::C : g0 + gridDim.x * fpb;
+      fetch<LOG2H>(v, x, next + team, frames, T, L, hop, p);
+      __syncthreads();
+
+      if (nnz)
+        project<LOG2H>(buf, bands, svals, tile, M, fpb, round);
+      else
+        project<LOG2H>(buf, bands, vals, tile, M, fpb, round);
+      __syncthreads();
+    }
+    if (tid < fpb) {
+      const int g = g0 + tid, b = g / T;
+      dst[tid] = g < frames ? (static_cast<long long>(b) * M) * T + (g - b * T) : -1;
+    }
+    __syncthreads();
+    for (int o = tid; o < fpb * M; o += S::THREADS) {
+      const int i = o & (fpb - 1), m = o >> log2fpb;
+      const long long d = dst[i];
+      if (d >= 0) out[d + static_cast<long long>(m) * T] = tile[m * fpb + i];
+    }
+  }
+}
+
+int device_sms() {
+  static int sms[MAX_DEVICES];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return 132;
+  if (!sms[dev]) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+      n = 132;
+    sms[dev] = n;
+  }
+  return sms[dev];
+}
+
+template <int LOG2H>
+int launch(const float* x, const float* window, const float2* twiddle, const int* band,
+           const float* vals, float* out, int B, int L, int hop, int T, int M, int nnz,
+           float eps, cudaStream_t stream) {
+  using S = Shape<LOG2H>;
+  const long long frames = static_cast<long long>(B) * T;
+  if (frames < 1 || frames > (1LL << 30) || M < 1 || nnz < 0 || hop < 1 || L < S::N)
+    return cudaErrorInvalidValue;
+  // the bands' entries in shared memory where two blocks still fit an SM
+  size_t bytes = smem_bytes<LOG2H>(M, nnz);
+  const bool vals_shared = bytes <= static_cast<size_t>(SMEM_LIMIT) / 2;
+  if (!vals_shared) bytes = smem_bytes<LOG2H>(M, 0);
+  if (bytes > static_cast<size_t>(SMEM_LIMIT)) return cudaErrorInvalidValue;
+  // per device: the shared-memory limit raised, and the blocks an SM holds
+  // at the last size asked for
+  static bool opened[MAX_DEVICES];
+  static size_t held_bytes[MAX_DEVICES];
+  static int held[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (bytes > 48 * 1024 && !opened[dev]) {
+    err = cudaFuncSetAttribute(framed_fft_filterbank_kernel<LOG2H>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err != cudaSuccess) return err;
+    opened[dev] = true;
+  }
+  if (held_bytes[dev] != bytes) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, framed_fft_filterbank_kernel<LOG2H>, S::THREADS, bytes);
+    if (err != cudaSuccess) return err;
+    held[dev] = n > 0 ? n : 1;
+    held_bytes[dev] = bytes;
+  }
+  // FPB frames at a time where that still gives every resident block some,
+  // else C (a stream step's few frames spread over more blocks)
+  const long long resident = static_cast<long long>(device_sms()) * held[dev];
+  const int rounds = (frames + S::FPB - 1) / S::FPB >= resident ? S::FPB / S::C : 1;
+  const int fpb = S::C * rounds;
+  const long long chunks = (frames + fpb - 1) / fpb;
+  const long long grid = chunks < resident ? chunks : resident;
+  framed_fft_filterbank_kernel<LOG2H>
+      <<<static_cast<unsigned>(grid), S::THREADS, bytes, stream>>>(
+          x, window, twiddle, band, vals, out, L, hop, T, M, vals_shared ? nnz : 0,
+          static_cast<int>(frames), rounds, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// out (B, M, T) fp32 <- x (B, L) fp32 framed by n (a power of two in
+// [64, 8192]) at hop, T = (L - n) / hop + 1; window (n,), twiddle, band and
+// vals (nnz entries) from ops/framed_kernels.py's FFTPlan. Returns a
+// cudaError_t.
+extern "C" int nnaudio_framed_filterbank_fft(const void* x, const void* window,
+                                             const void* twiddle, const void* band,
+                                             const void* vals, void* out, int B, int L,
+                                             int n, int hop, int T, int M, int nnz,
+                                             float eps, void* stream) {
+  const float* xs = static_cast<const float*>(x);
+  const float* w = static_cast<const float*>(window);
+  const float2* tw = static_cast<const float2*>(twiddle);
+  const int* bd = static_cast<const int*>(band);
+  const float* v = static_cast<const float*>(vals);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n) {
+    case 64: return launch<5>(xs, w, tw, bd, v, o, B, L, hop, T, M, nnz, eps, s);
+    case 128: return launch<6>(xs, w, tw, bd, v, o, B, L, hop, T, M, nnz, eps, s);
+    case 256: return launch<7>(xs, w, tw, bd, v, o, B, L, hop, T, M, nnz, eps, s);
+    case 512: return launch<8>(xs, w, tw, bd, v, o, B, L, hop, T, M, nnz, eps, s);
+    case 1024: return launch<9>(xs, w, tw, bd, v, o, B, L, hop, T, M, nnz, eps, s);
+    case 2048: return launch<10>(xs, w, tw, bd, v, o, B, L, hop, T, M, nnz, eps, s);
+    case 4096: return launch<11>(xs, w, tw, bd, v, o, B, L, hop, T, M, nnz, eps, s);
+    case 8192: return launch<12>(xs, w, tw, bd, v, o, B, L, hop, T, M, nnz, eps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+namespace {
+
+template <int LOG2H>
+int twiddles_if_fits(int m) {
+  return smem_bytes<LOG2H>(m, 0) <= static_cast<size_t>(SMEM_LIMIT) ? pass_offset(LOG2H, LOG2H)
+                                                                     : 0;
+}
+
+}  // namespace
+
+// The length of the twiddle table the kernel reads for frames of n samples
+// (ops/framed_kernels.py, fft_twiddles, makes it), or 0 where it cannot
+// project them onto m rows: n is not a power of two in [64, 8192], or a
+// block's shared memory would pass the H100's. The host asks this before it
+// builds a plan, so that this file alone decides the block's shape.
+extern "C" int nnaudio_framed_filterbank_fft_twiddles(int n, int m) {
+  if (m < 1) return 0;
+  switch (n) {
+    case 64: return twiddles_if_fits<5>(m);
+    case 128: return twiddles_if_fits<6>(m);
+    case 256: return twiddles_if_fits<7>(m);
+    case 512: return twiddles_if_fits<8>(m);
+    case 1024: return twiddles_if_fits<9>(m);
+    case 2048: return twiddles_if_fits<10>(m);
+    case 4096: return twiddles_if_fits<11>(m);
+    case 8192: return twiddles_if_fits<12>(m);
+    default: return 0;
+  }
+}

@@ -32,6 +32,7 @@ from ..ops.dispatch import (
     framed_power,
     synthesis_ola,
 )
+from ..ops.framed_kernels import FFTRoute
 from .base import SpectralTransform
 
 
@@ -165,6 +166,7 @@ class STFT(SpectralTransform):
         self.trainable = trainable
         self.output_format = output_format
         self.iSTFT = iSTFT
+        self._fft_route = FFTRoute()
 
         basis = create_fourier_basis(
             n_fft,
@@ -237,15 +239,22 @@ class STFT(SpectralTransform):
             return mag
         return mag ** power
 
-    def _filterbank_spectrogram(self, params, x, basis, power: float, eps: float):
+    def _filterbank_spectrogram(self, params, x, basis, power: float, eps: float,
+                                own_basis: bool = False):
         """Shared composite forward of Mel-type transforms: at ``power=2`` the
         frame + DFT pair + power + filterbank projection is one op (the K2
         kernel for CUDA tensors); other powers take ``|STFT|^p`` then
         project. A trainable STFT passes ``eps=1e-8``, the reference's
-        under-the-sqrt epsilon, an additive power offset at p=2."""
+        under-the-sqrt epsilon, an additive power offset at p=2.
+        ``own_basis``: ``basis`` is the caller's own filterbank, so that
+        where ``params`` holds this frozen STFT's own bases too, K2 may take
+        its FFT route (``framed_kernels.FFTRoute``, kept here)."""
         if power == 2.0:
+            own = (own_basis and not self.trainable and params["wcos"] is self.wcos
+                   and params["wsin"] is self.wsin)
             return framed_filterbank(self._padded(x), params["wcos"],
-                                     params["wsin"], basis, self.stride, eps=eps)
+                                     params["wsin"], basis, self.stride, eps=eps,
+                                     fft=self._fft_route if own else None)
         return project(basis, self._power_spectrogram(params, x, power))
 
     def forward(self, x, output_format=None):

@@ -117,11 +117,12 @@ def framed_power(x, wcos, wsin, hop):
     return _magnitude(x, wcos, wsin, hop, 0.0, True)
 
 
-def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0):
+def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0, fft=None):
     """``fb @ (|STFT|^2 + eps)`` -> (B, n_mels, T); the (B, F, T) power never
-    reaches device memory on the kernel path."""
+    reaches device memory on the kernel path. ``fft``: the caller's
+    ``framed_kernels.FFTRoute``, where the operands are the tensors it holds."""
     if _analysis_on():
-        return fk.framed_filterbank(x, wcos, wsin, fb, hop, eps=eps)
+        return fk.framed_filterbank(x, wcos, wsin, fb, hop, eps=eps, fft=fft)
     return fk.framed_filterbank_plain(x, wcos, wsin, fb, hop, eps=eps)
 
 

@@ -17,6 +17,13 @@ each group of :data:`KCHUNK_GROUP` bins multiplied only over the columns
 where its rows are nonzero (:func:`kchunk_ranges`), found on the device at
 every call.
 
+K2 has a second route: a transform's own frozen Fourier basis in fp32
+storage (the pair is the windowed DFT of ``wcos[0]``, recognised once per
+basis by the transform's :class:`FFTRoute`) takes ``framed_fft.cu``, a real FFT of each frame on the
+CUDA cores, its power and the filterbank's bands of nonzero columns
+(:func:`framed_filterbank_fft_plain` repeats its arithmetic); every other
+basis takes the tensor-core K2.
+
 K1, K2, K4 and K5 are one tensor-core kernel (``wgmma``) with four
 epilogues. In fp32 storage it takes three TF32 products of operands split as
 ``a = hi + lo`` and accumulates in fp32; :func:`tf32_split`,
@@ -52,12 +59,14 @@ gradient. On the CPU the plain versions differentiate through autograd.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from .._spans import copied, note_launch, span
+from .._spans import copied, note_launch, note_route, span
 from ..config import matmul_numerics, round_to_storage, storage_dtype
 from ..core.apply import apply_basis, project
 from ..core.frame import frame_signal, frames_to_signal, num_frames
@@ -65,7 +74,8 @@ from ..core.frame import frame_signal, frames_to_signal, num_frames
 #: kernel launches per wrapper, counted where the kernel is launched
 LAUNCHES: dict[str, int] = {"framed_magnitude": 0, "framed_filterbank": 0,
                             "synthesis_ola": 0, "gl_step": 0,
-                            "framed_pair": 0, "framed_magnitude_kchunk": 0}
+                            "framed_pair": 0, "framed_magnitude_kchunk": 0,
+                            "framed_filterbank_fft": 0}
 
 
 def reset_launches() -> None:
@@ -186,6 +196,206 @@ def framed_filterbank_3xtf32_plain(x, wcos, wsin, fb, hop, eps=0.0):
     for j in range(1, tiles):
         out = out + per_tile[:, j]
     return out
+
+
+#: n_fft of K2's FFT route: a power of two in this range
+FFT_MIN_N, FFT_MAX_N = 64, 8192
+#: points of the widest pass of the route's complex FFT, each held by one
+#: thread in registers (``RADIX`` in ``csrc/framed_fft.cu``)
+FFT_RADIX = 32
+#: the recognition of a Fourier basis: each entry within FOURIER_ULPS fp32
+#: units of its value (2^-23 of it each) plus FOURIER_FLOOR times the
+#: window's largest value, of ``w[k] cos(2 pi f k / N)`` (or sin) evaluated
+#: in float64
+FOURIER_ULPS = 4
+FOURIER_FLOOR = 2.0 ** -32
+
+
+def _bitrev(q: int, bits: int) -> int:
+    return int(format(q, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def fft_radices(h: int) -> list[int]:
+    """The passes of the route's ``h``-point complex FFT: :data:`FFT_RADIX`
+    points each, the last one fewer where ``log2 h`` asks for it."""
+    out = []
+    while h > 1:
+        out.append(min(FFT_RADIX, h))
+        h //= out[-1]
+    return out
+
+
+def fft_pass_offsets(h: int) -> list[int]:
+    """Where each pass's twiddles start in :func:`fft_twiddles` for an
+    ``h``-point FFT (the first pass has none), and last the table's length."""
+    offsets, at, ns = [], h + 1, 1
+    for r in fft_radices(h):
+        offsets.append(at)
+        if ns > 1:
+            at += ns * (r - 1)
+        ns *= r
+    return offsets + [at]
+
+
+def fft_twiddles(n: int, device=None) -> torch.Tensor:
+    """The FFT route's twiddles, (count, 2) float32, each ``exp(-2 pi i m /
+    n)`` for an m of [0, n), evaluated in float64 and rounded once (the
+    cosines and sines that are 0 at a quarter turn are exactly 0): first
+    ``W_n^f`` for f in [0, n/2] (the unpacking of the real FFT; its entry
+    ``t n/32`` is ``W_32^t``, the kernel's constants), then for each pass
+    after the first, with Ns the points already combined and R its radix,
+    ``W_(Ns R)^(r k)`` at ``(r - 1) Ns + k`` for k < Ns and 0 < r < R: a
+    warp's lanes, whose k run on, read neighbours
+    (:func:`fft_pass_offsets`)."""
+    h = n // 2
+    a = 2.0 * np.pi * np.arange(n) / n
+    full = np.stack((np.cos(a), -np.sin(a)), 1)
+    full[np.abs(full) < 1e-12] = 0.0
+    parts, ns = [full[:h + 1]], 1
+    for r in fft_radices(h):
+        if ns > 1:
+            q, k = np.arange(1, r)[:, None], np.arange(ns)[None, :]
+            parts.append(full[(2 * q * k * (h // (ns * r))).reshape(-1)])
+        ns *= r
+    return torch.from_numpy(np.concatenate(parts).astype(np.float32)).to(device)
+
+
+def _cmul(ar, ai, wr, wi):
+    return ar * wr - ai * wi, ar * wi + ai * wr
+
+
+def _dft_in_registers(vr, vi, w32r, w32i):
+    """The radix-R step of one thread on R points: decimation in frequency,
+    radix 2, from the widest half to the narrowest; ``d * W_2half^i`` is
+    ``d * W_32^(16i/half)``, a swap for ``-i``. Returns the R outputs in
+    natural order."""
+    r = len(vr)
+    half = r // 2
+    while half:
+        for b in range(0, r, 2 * half):
+            for i in range(half):
+                ar, ai, cr, ci = vr[b + i], vi[b + i], vr[b + i + half], vi[b + i + half]
+                vr[b + i], vi[b + i] = ar + cr, ai + ci
+                dr, di = ar - cr, ai - ci
+                t = i * (16 // half)
+                if t == 8:
+                    dr, di = di, -dr
+                elif t:
+                    dr, di = _cmul(dr, di, w32r[t], w32i[t])
+                vr[b + i + half], vi[b + i + half] = dr, di
+        half //= 2
+    bits = r.bit_length() - 1
+    return ([vr[_bitrev(q, bits)] for q in range(r)],
+            [vi[_bitrev(q, bits)] for q in range(r)])
+
+
+def _fft_stockham(zr, zi, table):
+    """The route's complex FFT of ``(zr, zi)`` (..., H) in fp32: Stockham
+    passes of :func:`fft_radices`, each reading ``z[j + r H/R]``, turning
+    point r by ``W_(Ns R)^(r k)`` (k = j mod Ns; none in the first pass,
+    where k is 0), the step of :func:`_dft_in_registers`, and writing point
+    q to ``(j // Ns) Ns R + k + q Ns``: natural order at the end. ``table``
+    is :func:`fft_twiddles`."""
+    h = zr.shape[-1]
+    tr, ti = table[:, 0], table[:, 1]
+    w32r, w32i = tr[:h:h // 16], ti[:h:h // 16]
+    ns = 1
+    for r, at in zip(fft_radices(h), fft_pass_offsets(h)):
+        m = h // r
+        j = torch.arange(m, device=zr.device)
+        k = j % ns
+        vr = [zr[..., q * m:(q + 1) * m] for q in range(r)]
+        vi = [zi[..., q * m:(q + 1) * m] for q in range(r)]
+        if ns > 1:
+            for q in range(1, r):
+                w = at + (q - 1) * ns + k
+                vr[q], vi[q] = _cmul(vr[q], vi[q], tr[w], ti[w])
+        vr, vi = _dft_in_registers(vr, vi, w32r, w32i)
+        base = (j // ns) * ns * r + k
+        zr, zi = torch.empty_like(zr), torch.empty_like(zi)
+        for q in range(r):
+            zr[..., base + q * ns] = vr[q]
+            zi[..., base + q * ns] = vi[q]
+        ns *= r
+    return zr, zi
+
+
+def fft_power_plain(frames, window, eps=0.0):
+    """``|rfft(window * frame)|^2 + eps`` of (..., N) fp32 frames as K2's FFT
+    route computes it: the windowed frame packed as N/2 complex points
+    ``(x[2j], x[2j+1])``, their FFT by :func:`_fft_stockham`, then for each
+    f of [0, N/4], with ``A = Z[f]``, ``B = Z[N/2 - f]`` (indices mod N/2),
+    ``E = A + conj B``, ``O = A - conj B``: bin f is ``X = E - i W_N^f O``
+    and bin N/2 - f is ``E + i W_N^f O`` (bin N/4 is taken from the first),
+    each squared as ``|X|^2 / 4 + eps``. -> (..., N/2 + 1)."""
+    n = frames.shape[-1]
+    h = n // 2
+    table = fft_twiddles(n, frames.device)
+    z = frames.float() * window.float()
+    zr, zi = _fft_stockham(z[..., 0::2], z[..., 1::2], table)
+    f = torch.arange(h // 2 + 1, device=frames.device)
+    ar, ai = zr[..., f], zi[..., f]
+    br, bi = zr[..., (h - f) % h], zi[..., (h - f) % h]
+    er, ei = ar + br, ai - bi
+    qr, qi = _cmul(ar - br, ai + bi, table[f, 0], table[f, 1])
+    lower, upper = [(xr * xr + xi * xi) * 0.25 + eps
+                    for xr, xi in ((er + qi, ei - qr), (er - qi, ei + qr))]
+    return torch.cat((lower, upper[..., :-1].flip(-1)), -1)
+
+
+def filterbank_bands(fb):
+    """``(lo, off, vals)`` of a filterbank (M, F): per row the first of the
+    contiguous range of columns that holds its nonzero entries (0 for a row
+    of zeros), the offsets of the rows' ranges in ``vals`` (M + 1 of them),
+    and the ranges' entries, row after row (zeros inside a range kept; a NaN
+    counts as nonzero)."""
+    lo, length = _band_ranges(fb)
+    off = F.pad(torch.cumsum(length, 0), (1, 0))
+    return lo, off, _band_values(fb, lo, off, length, int(off[-1]))
+
+
+def _band_ranges(fb):
+    m, f = fb.shape
+    nonzero = fb != 0
+    k = torch.arange(f, device=fb.device)
+    lo = torch.where(nonzero, k, f).amin(1)
+    hi = torch.where(nonzero, k + 1, 0).amax(1)
+    empty = lo >= hi
+    return lo.masked_fill(empty, 0), (hi - lo).masked_fill(empty, 0)
+
+
+def _band_values(fb, lo, off, length, nnz: int):
+    rows = torch.repeat_interleave(torch.arange(fb.shape[0], device=fb.device), length,
+                                   output_size=nnz)
+    cols = lo[rows] + torch.arange(nnz, device=fb.device) - off[rows]
+    return fb.detach().float()[rows, cols].contiguous()
+
+
+def banded_project_plain(power, lo, off, vals):
+    """``out[..., m] = sum_j vals[off_m + j] * power[..., lo_m + j]`` as K2's
+    FFT route adds it: the terms j of a row in four partial sums by j mod 4,
+    each from zero in order, then ``(s0 + s1) + (s2 + s3)``. (..., F) ->
+    (..., M)."""
+    length = off[1:] - off[:-1]
+    parts = [power.new_zeros(power.shape[:-1] + (lo.shape[0],)) for _ in range(4)]
+    for j in range(int(length.max())):
+        inside = j < length
+        v = vals[torch.where(inside, off[:-1] + j, 0)]
+        acc = parts[j % 4]
+        parts[j % 4] = torch.where(inside, acc + v * power[..., torch.where(inside, lo + j, 0)],
+                                   acc)
+    return (parts[0] + parts[1]) + (parts[2] + parts[3])
+
+
+def framed_filterbank_fft_plain(x, wcos, wsin, fb, hop, eps=0.0):
+    """K2's FFT route in plain PyTorch, with the kernel's arithmetic:
+    :func:`fft_power_plain` of each frame with the window ``wcos[0]``, then
+    :func:`banded_project_plain` over :func:`filterbank_bands`. -> (B, M, T).
+    It computes :func:`framed_filterbank_plain` where ``(wcos, wsin)`` is the
+    Fourier basis of that window (:func:`build_fft_plan`); ``wsin`` is not read."""
+    n = wcos.shape[-1]
+    power = fft_power_plain(frame_signal(x.float(), n, hop), wcos[0], eps)
+    return banded_project_plain(power, *filterbank_bands(fb)).transpose(1, 2)
 
 
 def synthesis_ola_plain(spec_re, spec_im, kc, ks, hop):
@@ -378,6 +588,10 @@ _SIGNATURES = {
     "nnaudio_kchunk_ranges": (
         "framed_kchunk",
         [_VOID] * 3 + [ctypes.c_longlong] + [_INT] * 4 + [_VOID]),
+    "nnaudio_framed_filterbank_fft": (
+        "framed_fft",
+        [_VOID] * 6 + [_INT] * 7 + [ctypes.c_float, _VOID]),
+    "nnaudio_framed_filterbank_fft_twiddles": ("framed_fft", [_INT] * 2),
 }
 #: the span of each C entry's launch
 _LAUNCH_SPANS = {"nnaudio_framed_magnitude": "nnaudio.launch.K1",
@@ -386,7 +600,8 @@ _LAUNCH_SPANS = {"nnaudio_framed_magnitude": "nnaudio.launch.K1",
                  "nnaudio_gl_step": "nnaudio.launch.K4",
                  "nnaudio_framed_pair": "nnaudio.launch.K5",
                  "nnaudio_framed_magnitude_kchunk": "nnaudio.launch.K6",
-                 "nnaudio_kchunk_ranges": "nnaudio.launch.K6"}
+                 "nnaudio_kchunk_ranges": "nnaudio.launch.K6",
+                 "nnaudio_framed_filterbank_fft": "nnaudio.launch.K2"}
 _fns: dict[str, object] = {}
 
 
@@ -624,25 +839,156 @@ def _launch_magnitude_kchunk(x, wcos, wsin, hop, eps, square, splits=None):
 
 
 def _launch_filterbank(x, wcos, wsin, fb, hop, eps):
-    with span("nnaudio.wrap.K2"):
-        xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
-        b, _, _, _, f, t = dims
-        fb_t = _operand(fb.t(), "fb", 2, xs.device)  # (F, M)
-        if fb_t.shape[0] != f:
-            raise ValueError(f"fb {tuple(fb.shape)} does not match {f} bins")
-        m = fb_t.shape[1]
-        out = torch.empty((b, m, t), dtype=torch.float32, device=xs.device)
-        # each block tile of bins writes its partial projection here; a second
-        # kernel sums the tiles in order
-        work = torch.empty((_ceil_div(f, TC_BLOCK_F), b, m,
-                            _ceil_div(t, TC_FRAME_ALIGN) * TC_FRAME_ALIGN),
-                           dtype=torch.float32, device=xs.device)
-        with torch.cuda.device(xs.device):
-            _run("nnaudio_framed_filterbank", xs.data_ptr(), wc.data_ptr(),
-                 ws.data_ptr(), fb_t.data_ptr(), out.data_ptr(), work.data_ptr(),
-                 *dims, m, float(eps), int(xs.dtype == torch.bfloat16), _stream())
-        LAUNCHES["framed_filterbank"] += 1
-        return out
+    """Dense K2, inside the wrapper's span (:func:`framed_filterbank`)."""
+    xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
+    b, _, _, _, f, t = dims
+    fb_t = _operand(fb.t(), "fb", 2, xs.device)  # (F, M)
+    if fb_t.shape[0] != f:
+        raise ValueError(f"fb {tuple(fb.shape)} does not match {f} bins")
+    m = fb_t.shape[1]
+    out = torch.empty((b, m, t), dtype=torch.float32, device=xs.device)
+    # each block tile of bins writes its partial projection here; a second
+    # kernel sums the tiles in order
+    work = torch.empty((_ceil_div(f, TC_BLOCK_F), b, m,
+                        _ceil_div(t, TC_FRAME_ALIGN) * TC_FRAME_ALIGN),
+                       dtype=torch.float32, device=xs.device)
+    with torch.cuda.device(xs.device):
+        _run("nnaudio_framed_filterbank", xs.data_ptr(), wc.data_ptr(),
+             ws.data_ptr(), fb_t.data_ptr(), out.data_ptr(), work.data_ptr(),
+             *dims, m, float(eps), int(xs.dtype == torch.bfloat16), _stream())
+    LAUNCHES["framed_filterbank"] += 1
+    return out
+
+
+class FFTPlan(NamedTuple):
+    """What K2's FFT route reads besides the signal, made once per basis and
+    filterbank: the window ``wcos[0]`` (N,), the twiddle table
+    (:func:`fft_twiddles`), the filterbank's M bands as int32 ``lo`` (M)
+    then ``off`` (M + 1), and their entries (:func:`filterbank_bands`)."""
+    window: torch.Tensor
+    twiddle: torch.Tensor
+    band: torch.Tensor
+    vals: torch.Tensor
+    m: int
+
+
+def _fourier_mismatch(wcos, wsin):
+    """A 0-d bool on the bases' device, unread (no synchronisation): whether
+    an entry of ``(wcos, wsin)`` (F, N) lies off ``w[k] cos(2 pi f k / N)``
+    (or sin), with ``w = wcos[0]``, by more than :data:`FOURIER_ULPS` units
+    of its own value plus ``FOURIER_FLOOR * max |w|`` (the float64
+    reference's own error near the zeros of cos and sin, at the largest
+    phases); a NaN is off. Rows go by chunks of at most 4M entries."""
+    f, n = wcos.shape
+    dev = wcos.device
+    w = wcos[0].detach().double()
+    floor = FOURIER_FLOOR * w.abs().max()
+    k = torch.arange(n, device=dev)
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    step = max(1, (1 << 22) // n)
+    for f0 in range(0, f, step):
+        rows = torch.arange(f0, min(f, f0 + step), device=dev)
+        turn = (rows[:, None] * k % n).double() * (2.0 * np.pi / n)
+        for basis, ref in ((wcos, torch.cos(turn)), (wsin, torch.sin(turn))):
+            ref = ref * w
+            err = (basis[f0:f0 + rows.numel()].detach().double() - ref).abs()
+            off |= ~(err <= FOURIER_ULPS * 2.0 ** -23 * ref.abs() + floor).all()
+    return off
+
+
+def _kernel_takes(n: int, m: int) -> bool:
+    """Whether ``csrc/framed_fft.cu`` runs frames of ``n`` samples onto
+    ``m`` rows: the kernel owns its block's shape and shared memory, and
+    says so with the length of the twiddle table it reads for ``n`` (0
+    where it cannot run), which has to be :func:`fft_twiddles`'s."""
+    length = _fn("nnaudio_framed_filterbank_fft_twiddles")(n, m)
+    if length and length != fft_pass_offsets(n // 2)[-1]:
+        raise RuntimeError(f"framed_fft.cu reads {length} twiddles at n_fft {n}, "
+                           f"fft_twiddles makes {fft_pass_offsets(n // 2)[-1]}")
+    return length > 0
+
+
+def build_fft_plan(wcos, wsin, fb) -> FFTPlan | None:
+    """The FFT route's plan for ``(wcos, wsin, fb)``, or None where they are
+    not its operands: fp32 bases (F, N) with N a power of two in [64, 8192]
+    and F = N/2 + 1 that are the Fourier basis of the window ``wcos[0]``
+    (:func:`_fourier_mismatch`), and an fp32 or bf16 filterbank (M, F); on
+    the card, one that the kernel takes (:func:`_kernel_takes`). One
+    synchronisation."""
+    f, n = wcos.shape
+    if not (FFT_MIN_N <= n <= FFT_MAX_N and n & (n - 1) == 0 and f == n // 2 + 1
+            and wcos.dtype == wsin.dtype == torch.float32 and wsin.shape == wcos.shape
+            and fb.dtype in (torch.float32, torch.bfloat16) and fb.ndim == 2
+            and fb.shape[1] == f):
+        return None
+    if wcos.is_cuda and not _kernel_takes(n, fb.shape[0]):
+        return None
+    off_basis = _fourier_mismatch(wcos, wsin)
+    lo, length = _band_ranges(fb.detach())
+    off = F.pad(torch.cumsum(length, 0), (1, 0))
+    off_basis, nnz = torch.stack((off_basis.long(), off[-1])).tolist()
+    if off_basis:
+        return None
+    return FFTPlan(window=wcos[0].detach().clone(), twiddle=fft_twiddles(n, wcos.device),
+                   band=torch.cat((lo, off)).int(),
+                   vals=_band_values(fb, lo, off, length, nnz), m=fb.shape[0])
+
+
+class FFTRoute:
+    """K2's FFT route as one transform holds it for its own bases and
+    filterbank. The transform hands it to :func:`framed_filterbank` only
+    where the call's ``wcos``, ``wsin`` and ``fb`` are the tensors it holds,
+    so a basis passed in (a ``params`` override, the new parameters of a
+    training step) takes dense K2 unchecked. :meth:`plan` builds the plan at
+    the route's first call on the card (:func:`build_fft_plan`: one
+    comparison in float64, the band packing, one synchronisation) and again
+    only after one of the three tensors was replaced or changed in place
+    (its version, which ``update_params``, ``load_state_dict`` and in-place
+    ops bump); after that a call compares three tensors and their versions.
+    A write through ``.data`` bumps no version: make it with an in-place op
+    under ``torch.no_grad()``."""
+
+    def __init__(self) -> None:
+        self._ops: tuple = ()
+        self._stamp: tuple = ()
+        self._plan: FFTPlan | None = None
+
+    def plan(self, wcos, wsin, fb) -> FFTPlan | None:
+        """The plan for these operands, or None, which leaves them to dense
+        K2. A basis that requires grad, and bf16 storage, take dense K2
+        unchecked."""
+        if storage_dtype() != torch.float32 or wcos.requires_grad or wsin.requires_grad:
+            return None
+        stamp = (wcos._version, wsin._version, fb._version,
+                 wcos.data_ptr(), wsin.data_ptr(), fb.data_ptr())
+        ops = self._ops
+        if not (ops and ops[0] is wcos and ops[1] is wsin and ops[2] is fb
+                and stamp == self._stamp):
+            self._plan = build_fft_plan(wcos, wsin, fb)
+            self._ops, self._stamp = (wcos, wsin, fb), stamp
+        return self._plan
+
+
+def _launch_filterbank_fft(x, wcos, wsin, fb, hop, eps, plan):
+    """K2's FFT route, inside the wrapper's span: the bases and the
+    filterbank are read from ``plan``."""
+    _check_cuda(x)
+    xs = _operand(x, "x", 2, plan.window.device)
+    if hop < 1:
+        raise ValueError(f"hop must be >= 1, got {hop}")
+    b, length = xs.shape
+    n, m = plan.window.shape[0], plan.m
+    t = num_frames(length, n, hop)
+    if t < 1:
+        raise ValueError(f"signal of {length} samples is shorter than n_fft={n}")
+    out = torch.empty((b, m, t), dtype=torch.float32, device=xs.device)
+    with torch.cuda.device(xs.device):
+        _run("nnaudio_framed_filterbank_fft", xs.data_ptr(), plan.window.data_ptr(),
+             plan.twiddle.data_ptr(), plan.band.data_ptr(), plan.vals.data_ptr(),
+             out.data_ptr(), b, length, n, hop, t, m, plan.vals.numel(), float(eps),
+             _stream())
+    LAUNCHES["framed_filterbank_fft"] += 1
+    return out
 
 
 def _launch_pair(x, wcos, wsin, hop):
@@ -801,16 +1147,25 @@ def framed_magnitude_kchunk(x, wcos, wsin, hop, eps=0.0, square=False,
     return _launch_magnitude_kchunk(x, wcos, wsin, hop, eps, square, splits)
 
 
-def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0):
+def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0, fft=None):
     """K2: fb @ (|STFT|^2 + eps) -> (B, M, T) float32. A differentiated call
     takes the pair (K5), then the power and the projection in PyTorch, whose
-    autograd gives the JAX package's ``_fb_bwd`` (``d_fb`` included)."""
+    autograd gives the JAX package's ``_fb_bwd`` (``d_fb`` included). Else
+    the FFT route (``csrc/framed_fft.cu``) where the caller passes its
+    :class:`FFTRoute` ``fft`` for the tensors it holds and that route has a
+    plan for them, and the dense tensor-core K2 for every other basis."""
     if not _on_card(x):
         return framed_filterbank_plain(x, wcos, wsin, fb, hop, eps=eps)
     if _differentiated(x, wcos, wsin, fb):
         return project(fb, pair_magnitude(*framed_pair(x, wcos, wsin, hop),
                                           eps, square=True))
-    return _launch_filterbank(x, wcos, wsin, fb, hop, eps)
+    with span("nnaudio.wrap.K2"):
+        plan = fft.plan(wcos, wsin, fb) if fft is not None else None
+        if plan is not None:
+            note_route("K2.fft")
+            return _launch_filterbank_fft(x, wcos, wsin, fb, hop, eps, plan)
+        note_route("K2.dense")
+        return _launch_filterbank(x, wcos, wsin, fb, hop, eps)
 
 
 def synthesis_ola(spec_re, spec_im, kc, ks, hop):

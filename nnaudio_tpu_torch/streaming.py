@@ -50,6 +50,7 @@ from .features.base import to_float32
 from .features.stft import STFT, hermitian_weights, iSTFT
 from .ops.dispatch import (force_fuse, framed_basis_pair, framed_filterbank,
                            framed_magnitude, synthesis_ola)
+from .ops.framed_kernels import FFTRoute
 
 __all__ = [
     "StreamState",
@@ -298,11 +299,14 @@ class _StreamingFilterbank(_StreamingFramed):
         params = self._stft.params
         params["basis"] = to_float32(basis, self._stft.device)
         self._init_stream(n_fft, hop_length, params, self._stft.device, fuse=fuse)
+        # its own frozen bases and filterbank: K2 may take its FFT route
+        self._fft_route = FFTRoute()
 
     def _project(self, params, sig):
         if self.power == 2.0:
             return framed_filterbank(sig, params["wcos"], params["wsin"],
-                                     params["basis"], self.hop, eps=0.0)
+                                     params["basis"], self.hop, eps=0.0,
+                                     fft=self._fft_route)
         mag = framed_magnitude(sig, params["wcos"], params["wsin"], self.hop, eps=0.0)
         return project(params["basis"], mag ** self.power)
 

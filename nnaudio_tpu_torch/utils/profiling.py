@@ -19,6 +19,8 @@ span                            where
 ``.forward``, ``.backward``,
 ``.update``
 ``nnaudio.K5.backward``         the pair's backward (dW products, dx)
+``nnaudio.route.K2.fft``,       not a span: the count of K2's dispatches by
+``.dense``                      route (``ops.framed_kernels.framed_filterbank``)
 ==============================  =============================================
 
 Each row counts the spans, their host time and self time (less their child

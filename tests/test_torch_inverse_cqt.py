@@ -154,6 +154,7 @@ def test_pyramid_inverse_launches(kernel_route, cls):
     assert kernel_route["framed_pair"] == tl.n_octaves
     assert kernel_route["synthesis_ola"] == 1
     assert kernel_route["framed_magnitude"] == kernel_route["framed_filterbank"] == 0
+    assert kernel_route["framed_filterbank_fft"] == 0
 
 
 # ------------------------------------------------------------ GriffinLimCQT --
@@ -205,6 +206,7 @@ def test_griffinlim_cqt_launches(kernel_route, family):
     assert kernel_route["framed_pair"] == 3 * per
     assert kernel_route["synthesis_ola"] == 4
     assert kernel_route["framed_magnitude"] == kernel_route["framed_filterbank"] == 0
+    assert kernel_route["framed_filterbank_fft"] == 0
 
 
 def test_griffinlim_cqt_converges():

@@ -179,14 +179,15 @@ def test_streaming_filterbank_matches_offline(case):
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol * np.abs(want).max())
 
 
-@pytest.mark.parametrize("case,kernel", [("mel", "framed_filterbank"),
+@pytest.mark.parametrize("case,kernel", [("mel", "framed_filterbank_fft"),
                                          ("mel power 1", "framed_magnitude"),
-                                         ("mfcc", "framed_filterbank"),
-                                         ("gammatone", "framed_filterbank"),
-                                         ("chroma", "framed_filterbank")])
+                                         ("mfcc", "framed_filterbank_fft"),
+                                         ("gammatone", "framed_filterbank_fft"),
+                                         ("chroma", "framed_filterbank_fft")])
 def test_filterbank_step_is_one_launch(kernel_route, case, kernel):
     """Each primed step of a filterbank stream launches one kernel: K2 at
-    power 2, K1 (and a matmul) at power 1."""
+    power 2 (on its FFT route: the streams' bases are frozen Fourier bases),
+    K1 (and a matmul) at power 1."""
     name, kw, *_ = FILTERBANK_CASES[case]
     hop, n_fft = kw["hop_length"], kw["n_fft"]
     s = getattr(tstreaming, name)(device="cpu", **kw)

@@ -186,7 +186,7 @@ def test_time_stretch_launches(kernel_route):
         ts(_tone(secs=0.5), rate=0.8)
     assert kernel_route == {"framed_magnitude": 0, "framed_magnitude_kchunk": 0,
                             "framed_filterbank": 0, "framed_pair": 1,
-                            "synthesis_ola": 1}
+                            "synthesis_ola": 1, "framed_filterbank_fft": 0}
 
 
 # --------------------------------------------------------------- resample --

@@ -189,8 +189,11 @@ def test_launches_and_copies_count_against_the_wrapper(traced):
         return
     k2, k6, k5 = (table[f"nnaudio.wrap.{k}"] for k in ("K2", "K6", "K5"))
     assert (k2.launches, k6.launches, k5.launches) == (k2.count, k6.count, k5.count)
-    # the mel bank's transpose, (128, 1025) fp32, once per call and step
-    assert (k2.copies, k2.copy_bytes) == (k2.count, k2.count * FB_BYTES)
+    # the Mel's frozen Fourier basis takes K2's FFT route, whose packed bank
+    # is made once per basis: no operand is copied on a call or a step
+    assert (k2.copies, k2.copy_bytes) == (0, 0)
+    assert table["nnaudio.route.K2.fft"].count == k2.count
+    assert "nnaudio.route.K2.dense" not in table
     assert (k6.copies, k5.copies) == (0, 0)
     assert not table["nnaudio.launch.K2"].launches
 
@@ -272,6 +275,8 @@ def _row(count, outer, total, self_, launches=0, copies=0, copy_bytes=0):
 MADE_UP_TABLE = MappingProxyType({
     "nnaudio.transform.MelSpectrogram": _row(4, 4, 4e6, 1e6),
     "nnaudio.wrap.K2": _row(4, 0, 2e6, 1.2e6, 4, 4, 4 * FB_BYTES),
+    "nnaudio.route.K2.fft": _row(3, 0, 0, 0),
+    "nnaudio.route.K2.dense": _row(1, 0, 0, 0),
     "nnaudio.launch.K2": _row(4, 0, 8e5, 8e5),
     "nnaudio.stream.carry": _row(4, 0, 4e5, 4e5),
 })
@@ -298,6 +303,7 @@ READINGS = {  # each new reader on the made-up table and trace
     "host_self_ms.wrap.stream": 0.3, "host_self_ms.launch.stream": 0.2,
     "operand_copy_mb_per_step.stream": 0.5248, "carry_kernels_per_step.stream": 0.75,
     "idle_ms_per_step.port.stream": 0.75, "idle_ms_per_step.port.train": 0.75,
+    "fft_route_pct.serve": 75.0, "fft_route_pct.stream": 75.0,
 }
 
 

@@ -53,7 +53,8 @@ def kernel_route(monkeypatch):
     launch computes its plain version instead. Returns the launches, by
     kernel, counted as the wrappers count theirs."""
     calls = {k: 0 for k in ("framed_magnitude", "framed_magnitude_kchunk",
-                            "framed_filterbank", "framed_pair", "synthesis_ola")}
+                            "framed_filterbank", "framed_pair", "synthesis_ola",
+                            "framed_filterbank_fft")}
 
     def launch(name, plain):
         def run(*args):
@@ -69,6 +70,10 @@ def kernel_route(monkeypatch):
             fk.framed_magnitude_plain(x, wc, ws, hop, eps, square)))
     monkeypatch.setattr(fk, "_launch_filterbank", launch(
         "framed_filterbank", fk.framed_filterbank_plain))
+    monkeypatch.setattr(fk, "_launch_filterbank_fft", launch(
+        "framed_filterbank_fft",
+        lambda x, wc, ws, fb, hop, eps, plan:
+            fk.framed_filterbank_fft_plain(x, wc, ws, fb, hop, eps)))
     monkeypatch.setattr(fk, "_launch_pair", launch("framed_pair", fk.framed_pair_plain))
     monkeypatch.setattr(fk, "_launch_synthesis", launch(
         "synthesis_ola", fk.synthesis_ola_plain))
@@ -84,9 +89,10 @@ def route(request):
 
 
 def _no_fused_analysis(calls):
-    """Under grad no K1, K2 or K6 ran: the pair did."""
+    """Under grad no K1, K2 (either route) or K6 ran: the pair did."""
     if calls is not None:
         assert calls["framed_magnitude"] == calls["framed_filterbank"] == 0
+        assert calls["framed_filterbank_fft"] == 0
         assert calls["framed_magnitude_kchunk"] == 0
         assert calls["framed_pair"] >= 1
 
