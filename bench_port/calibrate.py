@@ -61,7 +61,7 @@ def main(argv=None, device="cuda:0", root: Path = ROOT, base: Path = harness.BAS
         report("program", seed, program)
         report("control", seed, control)
         if i < args.faults:
-            for fault in faults.FAULTS[cell.loop]:
+            for fault in faults.names(cell.loop):
                 with faults.planted(fault, cell.loop, entry_cfg):
                     report(f"fault:{fault}", seed, readings(cell, seed, args.seconds, device)[0])
     summary = {kind: {k: (max(v) if kind == "program" else min(v)) for k, v in vals.items()}

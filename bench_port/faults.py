@@ -12,6 +12,11 @@ Each fault wraps the port's entry that a loop calls, for the length of a
 
 No card path of one chip exchanges anything between chips, so the fault of
 an exchange left out has no cell here.
+
+Those are the faults of the three loops above. Any other loop brings its
+own: its module ``loops/<loop>.py`` defines ``FAULTS``, a tuple of names,
+and ``plant(fault, entry_cfg)``, a context manager; :func:`names` and
+:func:`planted` ask it.
 """
 from __future__ import annotations
 
@@ -24,6 +29,17 @@ FAULTS = {"offline": ("altered",), "stream": ("altered", "unchanged"),
           "train": ("altered", "unchanged", "half_batch")}
 
 
+def _loop_module(loop: str):
+    return importlib.import_module(f"{__package__}.loops.{loop}")
+
+
+def names(loop: str) -> tuple:
+    """The faults that a cell of ``loop`` can have."""
+    if loop in FAULTS:
+        return FAULTS[loop]
+    return tuple(getattr(_loop_module(loop), "FAULTS", ()))
+
+
 def _alter(y: torch.Tensor) -> torch.Tensor:
     y = y.clone()
     flat = y.view(-1)
@@ -32,7 +48,7 @@ def _alter(y: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _patched(owner, name: str, make):
+def patched(owner, name: str, make):
     own = name in vars(owner)
     original = getattr(owner, name)
     setattr(owner, name, make(original))
@@ -47,13 +63,15 @@ def _patched(owner, name: str, make):
 
 def planted(fault: str, loop: str, entry_cfg: dict):
     """A context in which the entry of ``entry_cfg`` carries ``fault``."""
-    if fault not in FAULTS[loop]:
+    if fault not in names(loop):
         raise ValueError(f"a {loop} cell has no fault {fault!r}")
+    if loop not in FAULTS:
+        return _loop_module(loop).plant(fault, entry_cfg)
     port = importlib.import_module("nnaudio_tpu_torch")
     if loop == "offline":
         module, _, name = entry_cfg["call"].rpartition(".")
         cls = getattr(importlib.import_module(f"{port.__name__}.{module}"), name)
-        return _patched(cls, "forward", lambda f: lambda self, x, **kw: _alter(f(self, x, **kw)))
+        return patched(cls, "forward", lambda f: lambda self, x, **kw: _alter(f(self, x, **kw)))
     if loop == "stream":
         module, _, name = entry_cfg["call"].rpartition(".")
         cls = getattr(importlib.import_module(f"{port.__name__}.{module}"), name)
@@ -65,7 +83,7 @@ def planted(fault: str, loop: str, entry_cfg: dict):
                     return state, y
                 return new_state, (_alter(y) if y.numel() else y)
             return step
-        return _patched(cls, "step", make)
+        return patched(cls, "step", make)
 
     module, _, name = entry_cfg["step"].rpartition(".")
     owner = importlib.import_module(f"{port.__name__}.{module}")
@@ -85,4 +103,4 @@ def planted(fault: str, loop: str, entry_cfg: dict):
             new[first].view(-1)[0] += 1e-3
             return loss, new
         return step
-    return _patched(owner, name, make)
+    return patched(owner, name, make)

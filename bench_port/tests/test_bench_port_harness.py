@@ -7,6 +7,7 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -18,15 +19,30 @@ from bench_port.tests import tiny
 SEED = (1 << 31) + 12345
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Each test on one CPU thread: test workers that each spread the tiny
+    cells' small operators over every core slow one another down by tens of
+    times (a tiny stream then completes no whole stream in its window)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def tree(tmp_path):
     return tiny.tree(tmp_path)
 
 
-def run_cell(tree, cell, capsys, seconds="0.3"):
+def loop_of(cell):
+    return tiny.tiny_traffic()[cell.split(".")[1]]["loop"]
+
+
+def run_cell(tree, cell, capsys):
     root, base = tree
-    rc = run.main(["--workload", cell, "--seed", str(SEED), "--seconds", seconds],
-                  device="cpu", root=root, base=base)
+    rc = run.main(["--workload", cell, "--seed", str(SEED), "--seconds",
+                   tiny.window(loop_of(cell))], device="cpu", root=root, base=base)
     out, err = capsys.readouterr()
     return rc, out, err
 
@@ -92,9 +108,7 @@ def test_a_whole_run_is_correct_and_ends_with_its_checks(tree, cell, capsys):
 
 
 @pytest.mark.parametrize("cell,fault", [(c, f) for c in tiny.cells()
-                                        for f in faults.FAULTS[json.loads(
-                                            (tiny.BENCH / "traffic" / f"{c.split('.')[1]}.json")
-                                            .read_text())["loop"]]])
+                                        for f in faults.names(loop_of(c))])
 def test_a_planted_fault_comes_out_not_correct(tree, cell, fault, capsys):
     root, base = tree
     found = harness.find_cell(harness.load_json(root / "BENCHMARK.json"), cell, root, base)
@@ -107,7 +121,8 @@ def test_a_planted_fault_comes_out_not_correct(tree, cell, fault, capsys):
 @pytest.mark.parametrize("cell", tiny.cells())
 def test_the_control_fails_a_limit_the_program_holds(tree, cell, capsys):
     root, base = tree
-    calibrate.main(["--workload", cell, "--seeds", "1", "--seconds", "0.2", "--faults", "0",
+    calibrate.main(["--workload", cell, "--seeds", "1", "--seconds", tiny.window(loop_of(cell)),
+                    "--faults", "0",
                     "--first-seed", str(SEED)], device="cpu", root=root, base=base)
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     program, control = summary["summary"]["program"], summary["summary"]["control"]
@@ -116,9 +131,32 @@ def test_the_control_fails_a_limit_the_program_holds(tree, cell, capsys):
     assert any(control[k] > limits[k] for k in limits)
 
 
+def test_a_loop_declares_its_faults_and_a_mix_its_tiny_size(tmp_path, monkeypatch):
+    assert faults.names("offline") == faults.FAULTS["offline"]
+    planted = []
+    probe = types.ModuleType("bench_port.loops.probe")
+    probe.FAULTS = ("slow", "wrong")
+    probe.plant = lambda fault, cfg: planted.append((fault, cfg)) or 7
+    monkeypatch.setitem(sys.modules, probe.__name__, probe)
+    assert "probe" not in faults.FAULTS and faults.names("probe") == ("slow", "wrong")
+    assert faults.planted("wrong", "probe", {"call": "x"}) == 7
+    assert planted == [("wrong", {"call": "x"})]
+    with pytest.raises(ValueError):
+        faults.planted("altered", "probe", {"call": "x"})
+    root, base = tiny.tree(tmp_path)
+    for path in (tiny.BENCH / "traffic").glob("*.json"):
+        written = json.loads((base / "traffic" / path.name).read_text())
+        if path.stem in tiny.TINY_TRAFFIC:
+            assert written == tiny.TINY_TRAFFIC[path.stem]
+        else:
+            mix = json.loads(path.read_text())
+            assert written == mix["tiny"] and written["loop"] == mix["loop"]
+
+
 def _python(args, cwd, **kw):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
+    env["OMP_NUM_THREADS"] = "1"
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
                           text=True, timeout=240, **kw)
 

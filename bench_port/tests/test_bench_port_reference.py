@@ -5,11 +5,14 @@ import pytest
 import torch
 from scipy.signal import get_window
 
-from bench_port.reference import builders, cqt84_22k, mel128_22k, numerics
+from bench_port.reference import builders, cqt84_22k, mel80_22k, mel128_22k, numerics
 
 MEL = {"sr": 8000, "n_fft": 64, "hop_length": 16, "n_mels": 10, "window": "hann",
        "center": True, "pad_mode": "reflect", "power": 2.0, "htk": False,
        "fmin": 0.0, "fmax": None, "norm": 1}
+INV = {"sr": 8000, "n_fft": 64, "hop_length": 16, "n_mels": 10, "window": "hann",
+       "center": True, "pad_mode": "reflect", "power": 1.0, "htk": False,
+       "fmin": 0.0, "fmax": 3000.0, "norm": 1, "momentum": 0.99}
 CQT = {"sr": 8000, "hop_length": 64, "fmin": 200.0, "n_bins": 24, "bins_per_octave": 12,
        "filter_scale": 1, "norm": 1, "window": "hann", "center": True, "pad_mode": "reflect"}
 
@@ -151,3 +154,91 @@ def test_builders_match_the_ports_at_the_configurations():
     kernels, lengths = builders.cqt_bank(22050, 32.70, 84, 12)
     np.testing.assert_allclose(kernels, bank.kernels, atol=1e-7)
     np.testing.assert_allclose(lengths, bank.lengths)
+
+
+def frames_numpy(x, n, hop):
+    t = (x.shape[1] - n) // hop + 1
+    return np.stack([x[:, i * hop:i * hop + n] for i in range(t)], axis=1)
+
+
+def invert_numpy(s, mel, phase, n_iter, n_iter_nnls):
+    """NNLS and fast Griffin-Lim in float64 NumPy, through ``rfft`` and
+    ``irfft``: (B, M, T) mels and (B, F, T) phases in cycles -> (B, L)."""
+    n, hop = s["n_fft"], s["hop_length"]
+    fb = builders.mel_filterbank(s["sr"], n, s["n_mels"], s["fmin"], s["fmax"])
+    step = 1.0 / np.linalg.svd(fb, compute_uv=False)[0] ** 2
+    spec = np.maximum(np.einsum("fm,bmt->bft", np.linalg.pinv(fb), mel), 0)
+    for _ in range(n_iter_nnls):
+        resid = np.einsum("mf,bft->bmt", fb, spec) - mel
+        spec = np.maximum(spec - step * np.einsum("mf,bmt->bft", fb, resid), 0)
+    mag = spec.transpose(0, 2, 1)  # (B, T, F); power 1
+    w = get_window("hann", n, fftbins=True)
+    t = mag.shape[1]
+    length = n + hop * (t - 1)
+    env = np.zeros(length)
+    for i in range(t):
+        env[i * hop:i * hop + n] += w ** 2
+
+    def synth(c):
+        frames = np.fft.irfft(c, n, axis=-1) * w
+        out = np.zeros((c.shape[0], length))
+        for i in range(t):
+            out[:, i * hop:i * hop + n] += frames[:, i]
+        return (out / np.where(env > 1e-10, env, 1.0))[:, n // 2:length - n // 2]
+
+    mom = s["momentum"] / (1 + s["momentum"])
+    c = mag * np.exp(2j * np.pi * phase.transpose(0, 2, 1))
+    p = np.zeros_like(c)
+    for _ in range(n_iter):
+        xp = np.pad(synth(c), ((0, 0), (n // 2, n // 2)), mode="reflect")
+        r = np.fft.rfft(frames_numpy(xp, n, hop) * w, axis=-1)
+        nn = r - mom * p
+        c, p = mag * nn / (np.abs(nn) + 1e-16), r
+    return synth(c)
+
+
+def test_mel80_reference_is_the_mel_of_the_magnitude():
+    x = signal(3, 700)
+    n = INV["n_fft"]
+    xp = np.pad(x, ((0, 0), (n // 2, n // 2)), mode="reflect")
+    spec = np.fft.rfft(frames_numpy(xp, n, 16) * get_window("hann", n, fftbins=True), axis=-1)
+    fb = builders.mel_filterbank(INV["sr"], n, INV["n_mels"], INV["fmin"], INV["fmax"])
+    want = np.einsum("mf,btf->bmt", fb, np.abs(spec))
+    assert close(mel80_22k.offline(INV, torch.tensor(x, dtype=torch.float32)), want, 2e-6)
+
+
+@pytest.mark.parametrize("n_iter,n_iter_nnls", [(0, 0), (0, 64), (3, 64)])
+def test_inversion_reference_matches_numpy_ffts(n_iter, n_iter_nnls):
+    x = torch.tensor(signal(3, 600, seed=2), dtype=torch.float32)
+    mel = mel80_22k.offline(INV, x)
+    phase = torch.rand(3, INV["n_fft"] // 2 + 1, mel.shape[-1],
+                       generator=torch.Generator().manual_seed(3))
+    got = mel80_22k.invert(INV, mel, phase, n_iter, n_iter_nnls)
+    want = invert_numpy(INV, mel.double().numpy(), phase.double().numpy(), n_iter, n_iter_nnls)
+    assert got.shape == want.shape == (3, 16 * (mel.shape[-1] - 1))
+    assert close(got, want, 1e-5)
+
+
+def test_inversion_reference_control_reads_far():
+    x = torch.tensor(signal(2, 600, seed=4), dtype=torch.float32)
+    mel = mel80_22k.offline(INV, x)
+    phase = torch.rand(2, INV["n_fft"] // 2 + 1, mel.shape[-1],
+                       generator=torch.Generator().manual_seed(5))
+    ref = mel80_22k.invert(INV, mel, phase, 4, 16).double()
+    ctl = mel80_22k.invert(INV, mel, phase, 4, 16, control=True).double()
+    assert (ctl - ref).norm() / ref.norm() > 1e-3
+
+
+def test_inversion_bases_match_the_ports_at_the_configuration():
+    from nnaudio_tpu_torch.features import InverseMelSpectrogram
+
+    s = {"sr": 22050, "n_fft": 1024, "n_mels": 80, "window": "hann", "fmin": 0.0,
+         "fmax": 8000.0, "htk": False, "norm": 1}
+    port = InverseMelSpectrogram(sr=22050, n_fft=1024, hop_length=256, n_mels=80, fmax=8000.0,
+                                 power=1.0, verbose=False, device="cpu")
+    b = mel80_22k.bases(s, "cpu")
+    # both from float64 filterbanks that agree to 1e-6 (the test above)
+    np.testing.assert_allclose(b["mel_basis"], port.mel_basis, rtol=1e-5, atol=1e-9)
+    pinv = port.mel_pinv.numpy()
+    np.testing.assert_allclose(b["mel_pinv"], pinv, rtol=1e-5, atol=1e-6 * np.abs(pinv).max())
+    assert b["step"] == pytest.approx(port._step, rel=1e-6)

@@ -1,4 +1,5 @@
-"""The least-work counts held to hand-worked values at the cells' shapes."""
+"""The least-work counts held to hand-worked values at the cells' shapes, and
+the inversion's elementwise reader on a made-up trace."""
 import json
 import math
 
@@ -7,7 +8,7 @@ import pytest
 
 from bench_port.reference import builders
 from bench_port.tests.tiny import BENCH
-from bench_port.work import counts, cqt84_22k, mel128_22k
+from bench_port.work import counts, cqt84_22k, mel80_22k, mel128_22k
 
 CLIP = 220500  # 10 s at 22,050 Hz
 FRAMES = 431  # 1 + 220500 // 512
@@ -112,3 +113,69 @@ def test_sparse_spectral_kernel_drops_the_small_tail():
 def test_peaks_are_the_data_sheet_rates():
     assert counts.PEAK_FLOPS == 495e12 and counts.PEAK_BYTES == 3.35e12
     assert counts.rfft_flops(2048) == 2.5 * 2048 * math.log2(2048)
+
+
+#: one inversion call: 32 mels of 862 frames (10 s at hop 256), 32 Griffin-Lim
+#: iterations, 64 NNLS steps
+INVERT = (32, 862, 32, 64)
+
+
+def test_invert_call_reads_the_mel_and_phase_and_writes_the_audio():
+    s = settings("mel80_22k")
+    assert counts.frames(CLIP, 1024, 256, True) == 862
+    flops, nbytes = mel80_22k.least("call", "invert", INVERT, s)
+    mel, phase, audio = 4 * 32 * 80 * 862, 4 * 32 * 513 * 862, 4 * 32 * 861 * 256
+    assert (round(mel / 1e6, 1), round(phase / 1e6, 1), round(audio / 1e6, 1)) == (8.8, 56.6, 28.2)
+    assert nbytes == mel + phase + audio
+    nz = np.count_nonzero(builders.mel_filterbank(22050, 1024, 80, 0.0, 8000.0))
+    cols = 32 * 862
+    ffts = 65 * cols * 2.5 * 1024 * 10  # 32 analyses, 33 syntheses
+    nnls = cols * (2 * 513 * 80 + 64 * 2 * 2 * nz)
+    assert flops == ffts + 12 * 32 * 513 * cols + nnls
+    # operations bound it: about 0.12 ms at 495 TFLOP/s
+    assert counts.least_seconds(flops, nbytes) == pytest.approx(flops / 495e12)
+    assert 0.1e-3 < flops / 495e12 < 0.13e-3
+
+
+def test_invert_kernels_count_each_launch_of_a_call():
+    s = settings("mel80_22k")
+    cols = 32 * 862
+    spectra = 4 * 2 * 32 * 513 * 862
+    k3_flops, k3_bytes = mel80_22k.least("K3", "invert", INVERT, s)
+    assert k3_bytes == 33 * (spectra + 4 * 32 * (1024 + 256 * 861))
+    assert k3_flops == 33 * cols * (2.5 * 1024 * 10 + 1024)
+    # bytes bound a launch: about 42 us
+    assert k3_bytes / 33 / 3.35e12 == pytest.approx(42.2e-6, rel=1e-2)
+    k5_flops, k5_bytes = mel80_22k.least("K5", "invert", INVERT, s)
+    assert k5_bytes == 32 * (4 * 32 * (256 * 861 + 1024) + spectra)
+    assert k5_flops == 32 * cols * 2.5 * 1024 * 10
+    assert k5_bytes / 32 / 3.35e12 == pytest.approx(42.2e-6, rel=1e-2)
+
+
+def test_nnls_products_count_their_operands_and_the_basis_nonzeros():
+    s = settings("mel80_22k")
+    nz = np.count_nonzero(builders.mel_filterbank(22050, 1024, 80, 0.0, 8000.0))
+    assert nz <= 2 * 513
+    cols = 32 * 862
+    flops, nbytes = mel80_22k.least("nnls_gemm", "invert", INVERT, s)
+    assert flops == 2 * 513 * 80 * cols + 64 * 4 * nz * cols
+    seed = 4 * (513 * 80 + 80 * cols + 513 * cols)
+    assert nbytes == seed + 64 * 2 * 4 * (80 * 513 + 513 * cols + 80 * cols)
+    assert mel80_22k.least("call", "offline", (32, CLIP), s) is None
+    assert mel128_22k.least("call", "invert", INVERT, settings("mel128_22k")) is None
+
+
+def test_the_elementwise_reader_leaves_out_copy_kernels():
+    from types import SimpleNamespace as NS
+
+    from bench_port import harness, trace
+
+    t = trace.Trace(window_s=1.0, busy_s=0.5,
+                    kernel_s={"vectorized_elementwise_kernel<4, CUDAFunctor_add<float>>": 0.03,
+                              "elementwise_kernel<128, 2, gpu_kernel_impl_nocast<"
+                              "direct_copy_kernel_cuda>>": 0.02,
+                              "synthesis_tc_kernel<float, 128, false>": 0.1},
+                    launches=[], idle_by_host=[], stats={"attempted": 3}, host_stats={})
+    read = harness.reader("elementwise_ms_per_call.invert")
+    assert read(NS(trace=t)) == pytest.approx(10.0)
+    assert read(NS(trace=None)) is None
