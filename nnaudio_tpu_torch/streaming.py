@@ -431,11 +431,30 @@ class StreamingiSTFT:
     are linear, so ``concat(steps..., flush())`` equals the offline
     ``iSTFT(center=False)(X, onesided=True)``. Each step is one synthesis
     kernel launch (K3) for CUDA tensors.
+
+    ``padding`` names the alignment as Vocos's ``ISTFT`` does: ``"none"``
+    (the default) emits the ``center=False`` overlap-add from its first
+    sample; ``"same"`` drops ``(n_fft - hop) // 2`` samples (Vocos's
+    ``(win_length - hop_length) // 2``, its frames being ``win_length =
+    n_fft`` wide) from the head of the stream, across as many steps as that
+    takes, and as many from the end in :meth:`flush`, so that ``concat(steps...,
+    flush())`` equals Vocos's ``ISTFT(padding="same")``: ``T*hop`` samples for
+    ``T`` frames where ``n_fft - hop`` is even. The samples still to drop
+    ride in the state, so chunk lengths may vary between calls.
+
+    While a profiler runs, :meth:`step` is the span
+    ``nnaudio.stream.step.StreamingiSTFT`` (inside it ``nnaudio.stream.envelope``
+    around the step's window envelope and ``nnaudio.stream.carry`` around the
+    tails' additions, the slices and the trim) and :meth:`flush` the span
+    ``nnaudio.stream.flush.StreamingiSTFT``.
     """
 
     def __init__(self, n_fft: int = 2048, hop_length: int | None = None,
                  win_length: int | None = None, window: str = "hann",
-                 verbose: bool = False, fuse: bool | None = None, device=None):
+                 verbose: bool = False, fuse: bool | None = None, device=None,
+                 padding: str = "none"):
+        if padding not in ("none", "same"):
+            raise ValueError(f"padding must be 'none' or 'same', got {padding!r}")
         self.fuse = fuse
         self._ist = iSTFT(n_fft=n_fft, hop_length=hop_length,
                           win_length=win_length, window=window,
@@ -445,6 +464,8 @@ class StreamingiSTFT:
         self.hop = self._ist.stride
         if self.hop > n_fft:
             raise ValueError("hop_length > n_fft has gaps; cannot stream")
+        self.padding = padding
+        self.trim = (n_fft - self.hop) // 2 if padding == "same" else 0
         f = n_fft // 2 + 1
         with torch.no_grad():
             wt = hermitian_weights(n_fft, f, device=self.device)
@@ -459,32 +480,49 @@ class StreamingiSTFT:
         return self.n_fft - self.hop
 
     def init_state(self, batch: int):
-        """(overlap-add tail, envelope tail), both un-normalized running sums."""
-        return (torch.zeros((batch, self.overlap), device=self.device),
-                torch.zeros((self.overlap,), device=self.device))
+        """(overlap-add tail, envelope tail), both un-normalized running sums;
+        with ``padding="same"`` also the count of head samples still to drop."""
+        state = (torch.zeros((batch, self.overlap), device=self.device),
+                 torch.zeros((self.overlap,), device=self.device))
+        return state + (self.trim,) if self.padding == "same" else state
 
     def step(self, state, X):
         """``X``: (B, n_fft//2+1, T, 2) onesided frames (T >= 1); returns
-        ``(new_state, samples)`` with ``samples`` shaped (B, T*hop)."""
-        X = _on_device(X, self.device, "spectrum")
-        f, t = X.shape[1], X.shape[2]
-        if f != self.n_fft // 2 + 1:
-            raise ValueError(f"expected {self.n_fft // 2 + 1} onesided bins, got {f}")
-        tail, env_tail = state
-        hop, overlap, emit = self.hop, self.overlap, t * self.hop
-        with force_fuse(self.fuse):
-            sig = synthesis_ola(X[..., 0], X[..., 1], self._kc, self._ks, hop)
-        env = window_sumsquare(self._window, t, hop, self.n_fft)
-        if overlap:
-            sig = torch.cat((sig[:, :overlap] + tail, sig[:, overlap:]), dim=1)
-            env = torch.cat((env[:overlap] + env_tail, env[overlap:]))
-        out = normalize_by_window_envelope(sig[:, :emit], env[:emit])
-        return (sig[:, emit:], env[emit:]), out
+        ``(new_state, samples)`` with ``samples`` shaped (B, T*hop), less
+        what the ``"same"`` trim still drops."""
+        with span("nnaudio.stream.step.StreamingiSTFT"):
+            X = _on_device(X, self.device, "spectrum")
+            f, t = X.shape[1], X.shape[2]
+            if f != self.n_fft // 2 + 1:
+                raise ValueError(f"expected {self.n_fft // 2 + 1} onesided bins, got {f}")
+            tail, env_tail, *trim = state
+            hop, overlap, emit = self.hop, self.overlap, t * self.hop
+            with force_fuse(self.fuse):
+                sig = synthesis_ola(X[..., 0], X[..., 1], self._kc, self._ks, hop)
+            with span("nnaudio.stream.envelope"):
+                env = window_sumsquare(self._window, t, hop, self.n_fft)
+            with span("nnaudio.stream.carry"):
+                if overlap:
+                    sig = torch.cat((sig[:, :overlap] + tail, sig[:, overlap:]), dim=1)
+                    env = torch.cat((env[:overlap] + env_tail, env[overlap:]))
+                new_state = (sig[:, emit:], env[emit:])
+                sig, env = sig[:, :emit], env[:emit]
+                if trim:
+                    drop = min(trim[0], emit)
+                    sig, env = sig[:, drop:], env[drop:]
+                    new_state += (trim[0] - drop,)
+            return new_state, normalize_by_window_envelope(sig, env)
 
     def flush(self, state):
-        """Emit the final ``n_fft - hop`` tail samples after the last chunk."""
-        tail, env_tail = state
-        return normalize_by_window_envelope(tail, env_tail)
+        """Emit the final ``n_fft - hop`` tail samples after the last chunk,
+        less the ``"same"`` trim at the end (and at the head, where the
+        stream was too short to pass it)."""
+        with span("nnaudio.stream.flush.StreamingiSTFT"):
+            tail, env_tail, *trim = state
+            if trim:
+                keep = slice(trim[0], self.overlap - self.trim)
+                tail, env_tail = tail[:, keep], env_tail[keep]
+            return normalize_by_window_envelope(tail, env_tail)
 
 
 class StreamingInverseCQT:
@@ -499,6 +537,11 @@ class StreamingInverseCQT:
 
     Same quality contract as the offline inverse: keep ``hop_length`` at or
     below half the shortest atom or the top octave aliases (warned).
+
+    While a profiler runs, :meth:`step` is the span
+    ``nnaudio.stream.step.StreamingInverseCQT`` (inside it
+    ``nnaudio.stream.carry`` around the tail's addition and the slices) and
+    :meth:`flush` the span ``nnaudio.stream.flush.StreamingInverseCQT``.
     """
 
     def __init__(self, sr: float = 22050, hop_length: int = 512,
@@ -538,21 +581,24 @@ class StreamingInverseCQT:
     def step(self, state, X):
         """``X``: (B, n_bins, T, 2) Complex CQT frames (T >= 1); returns
         ``(new_state, samples)`` with ``samples`` shaped (B, T*hop)."""
-        X = _on_device(X, self.device, "spectrum")
-        if X.ndim != 4 or X.shape[-1] != 2:
-            raise ValueError(
-                "step expects Complex format (batch, n_bins, time, 2); for "
-                "magnitude CQTs use features.GriffinLimCQT (offline)")
-        f, t = X.shape[1], X.shape[2]
-        if f != self.n_bins:
-            raise ValueError(f"expected {self.n_bins} bins, got {f}")
-        with force_fuse(self.fuse):
-            sig = synthesis_ola(X[..., 0], X[..., 1], self._kc, self._ks, self.hop)
-        overlap, emit = self.overlap, t * self.hop
-        if overlap:
-            sig = torch.cat((sig[:, :overlap] + state, sig[:, overlap:]), dim=1)
-        return sig[:, emit:], sig[:, :emit]
+        with span("nnaudio.stream.step.StreamingInverseCQT"):
+            X = _on_device(X, self.device, "spectrum")
+            if X.ndim != 4 or X.shape[-1] != 2:
+                raise ValueError(
+                    "step expects Complex format (batch, n_bins, time, 2); for "
+                    "magnitude CQTs use features.GriffinLimCQT (offline)")
+            f, t = X.shape[1], X.shape[2]
+            if f != self.n_bins:
+                raise ValueError(f"expected {self.n_bins} bins, got {f}")
+            with force_fuse(self.fuse):
+                sig = synthesis_ola(X[..., 0], X[..., 1], self._kc, self._ks, self.hop)
+            overlap, emit = self.overlap, t * self.hop
+            with span("nnaudio.stream.carry"):
+                if overlap:
+                    sig = torch.cat((sig[:, :overlap] + state, sig[:, overlap:]), dim=1)
+                return sig[:, emit:], sig[:, :emit]
 
     def flush(self, state):
         """Emit the final ``kernel_width - hop`` tail samples."""
-        return state
+        with span("nnaudio.stream.flush.StreamingInverseCQT"):
+            return state

@@ -19,6 +19,7 @@ from nnaudio_tpu_torch import config
 from nnaudio_tpu_torch import features as tfeatures
 from nnaudio_tpu_torch import streaming as tstreaming
 from nnaudio_tpu_torch.ops import dispatch as td
+from bench_port.reference import istft1024_24k as istft_reference
 from test_torch_training import kernel_route  # noqa: F401  (a fixture: launches counted)
 
 REL = 1e-4  # port against JAX (ROADMAP: the framed ops)
@@ -275,6 +276,98 @@ def test_streaming_inverse_cqt_matches_offline(kernel_route):
     pieces.append(_np(sinv.flush(s_state)))
     loop = np.concatenate(pieces, axis=-1)
     np.testing.assert_allclose(loop, want[:, :loop.shape[-1]], atol=1e-5 * np.abs(want).max())
+
+
+
+# ------------------------------------------------- Vocos's "same" trim --
+def _vocos_same(n_fft, hop, X):
+    """Vocos's ``ISTFT(padding="same")`` of the (B, F, T, 2) frames: the
+    benchmark's plain reference (``torch.fft.irfft``, ``F.fold``, the cut)."""
+    s = {"n_fft": n_fft, "hop_length": hop, "win_length": n_fft, "window": "hann"}
+    return _np(istft_reference.synthesis(s, torch.as_tensor(X)))
+
+
+def _synth(s, X, sizes):
+    """Steps over ``X``'s frames in chunks cycling through ``sizes`` (the last
+    cut to what is left), then ``flush``: the concatenated samples and each
+    step's sample count."""
+    state, outs, lens, pos, k = s.init_state(X.shape[0]), [], [], 0, 0
+    while pos < X.shape[2]:
+        size = min(sizes[k % len(sizes)], X.shape[2] - pos)
+        state, samples = s.step(state, X[:, :, pos:pos + size])
+        outs.append(_np(samples))
+        lens.append(samples.shape[1])
+        pos, k = pos + size, k + 1
+    outs.append(_np(s.flush(state)))
+    return np.concatenate(outs, axis=1), lens
+
+
+@pytest.mark.parametrize("n_fft,hop", [(64, 16), (128, 32), (256, 64)])
+def test_streaming_istft_same_equals_vocos(kernel_route, n_fft, hop):
+    """``padding="same"``: chunks of varying length (T = 1 among them) and a
+    flush concatenate to Vocos's ``ISTFT(padding="same")`` of all the
+    frames, ``T*hop`` samples, through one K3 launch a step; the trim runs
+    across the steps it takes, and the analysis closes the loop."""
+    b, t_total = 2, 45
+    x = np.random.RandomState(11).randn(b, (t_total - 1) * hop + n_fft).astype(np.float32)
+    X = _np(tfeatures.STFT(n_fft=n_fft, hop_length=hop, center=False,
+                           output_format="Complex", verbose=False, device="cpu")(x))
+    s = tstreaming.StreamingiSTFT(n_fft=n_fft, hop_length=hop, padding="same", device="cpu")
+    sizes = [1, 2, 1, 7, 3, 13]
+    before = kernel_route["synthesis_ola"]
+    got, lens = _synth(s, X, sizes)
+    assert kernel_route["synthesis_ola"] - before == len(lens)
+    pad = (n_fft - hop) // 2
+    # 1, 3 and 4 frames in: the trim takes all of the first step's samples
+    # and part of the second's
+    assert list(np.cumsum(lens[:3])) == [max(0, c * hop - pad) for c in (1, 3, 4)]
+    assert lens[0] == 0 and 0 < lens[1] < 2 * hop
+    want = _vocos_same(n_fft, hop, X)
+    assert got.shape == want.shape == (b, t_total * hop)
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(got, x[:, pad:pad + t_total * hop], atol=1e-4 * np.abs(x).max())
+
+
+def test_streaming_istft_default_is_unchanged():
+    """The default is ``padding="none"``: its state is the two tails, its
+    samples equal an explicit ``"none"`` stream's bit for bit, and the
+    ``"same"`` stream's are the same samples less ``(n_fft - hop) // 2`` at
+    each end."""
+    n_fft, hop = 256, 64
+    X = np.random.RandomState(12).randn(2, n_fft // 2 + 1, 30, 2).astype(np.float32)
+    default = tstreaming.StreamingiSTFT(n_fft=n_fft, hop_length=hop, device="cpu")
+    assert default.padding == "none" and len(default.init_state(2)) == 2
+    sizes = [3, 1, 8]
+    got, _ = _synth(default, X, sizes)
+    none, _ = _synth(tstreaming.StreamingiSTFT(n_fft=n_fft, hop_length=hop, padding="none",
+                                               device="cpu"), X, sizes)
+    assert np.array_equal(got, none)
+    same, _ = _synth(tstreaming.StreamingiSTFT(n_fft=n_fft, hop_length=hop, padding="same",
+                                               device="cpu"), X, sizes)
+    pad = (n_fft - hop) // 2
+    np.testing.assert_allclose(same, got[:, pad:-pad], atol=1e-6 * np.abs(got).max())
+
+
+@pytest.mark.parametrize("padding", ["center", "valid", "", None])
+def test_streaming_istft_rejects_a_bad_padding(padding):
+    with pytest.raises(ValueError, match="padding"):
+        tstreaming.StreamingiSTFT(n_fft=256, hop_length=64, padding=padding, device="cpu")
+
+
+@pytest.mark.parametrize("frames", [0, 1, 3])
+def test_a_stream_too_short_to_pass_the_trim_emits_nothing_and_flushes(frames):
+    """At n_fft 256, hop 32 the trim is 112 samples: 3 frames (96 samples)
+    never pass it, so every step emits nothing, and the flush emits Vocos's
+    ``T*hop`` samples (none for a stream of no frames)."""
+    n_fft, hop = 256, 32
+    X = np.random.RandomState(13).randn(2, n_fft // 2 + 1, frames, 2).astype(np.float32)
+    s = tstreaming.StreamingiSTFT(n_fft=n_fft, hop_length=hop, padding="same", device="cpu")
+    got, lens = _synth(s, X, [1])
+    assert lens == [0] * frames
+    assert got.shape == (2, frames * hop)
+    if frames:
+        want = _vocos_same(n_fft, hop, X)
+        np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
 
 
 # ------------------------------------------------------------ the override --

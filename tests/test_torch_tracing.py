@@ -348,3 +348,118 @@ def test_every_new_reader_is_declared():
     assert set(READINGS) <= declared
     assert np.all([m["layer"] == "port host path" for m in BENCH["per_layer"]
                    if m["name"] in READINGS])
+
+
+# ------------------------------------------------ the synthesis streams --
+SYNTH_STEP = "nnaudio.stream.step.StreamingiSTFT"
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+def test_a_synthesis_step_holds_its_envelope_and_carry_and_flush_is_its_own(route):
+    """Under a profiler each ``StreamingiSTFT`` step is an outermost span
+    with ``nnaudio.stream.envelope`` and ``nnaudio.stream.carry`` inside (and
+    K3's wrapper on the kernel route), and ``flush`` one of its own."""
+    s = streaming.StreamingiSTFT(n_fft=256, hop_length=64, padding="same", device="cpu")
+    X = torch.randn(2, 129, 12, 2, generator=torch.Generator().manual_seed(4))
+    ctx = contextlib.nullcontext() if route == "plain" else stubbed_launches()
+    with ctx, profile(activities=[ProfilerActivity.CPU]) as prof:
+        state = s.init_state(2)
+        for a in range(0, 12, 4):
+            state, _ = s.step(state, X[:, :, a:a + 4])
+        s.flush(state)
+    events, table = prof.events(), profiling.span_table()
+    flush = "nnaudio.stream.flush.StreamingiSTFT"
+    assert (table[SYNTH_STEP].count, table[SYNTH_STEP].outer) == (3, 3)
+    assert (table[flush].count, table[flush].outer) == (1, 1)
+    children = ["nnaudio.stream.envelope", "nnaudio.stream.carry"]
+    if route == "kernel":
+        children.append("nnaudio.wrap.K3")
+        assert table["nnaudio.wrap.K3"].launches == 3
+    for child in children:
+        assert (table[child].count, table[child].outer) == (3, 0)
+        assert {_port_parent(e) for e in events if e.name == child} == {SYNTH_STEP}
+    assert {_port_parent(e) for e in events if e.name in (SYNTH_STEP, flush)} == {None}
+
+
+def test_an_inverse_cqt_step_holds_its_carry_and_flush_is_its_own():
+    s = streaming.StreamingInverseCQT(sr=22050, fmin=220, n_bins=24, hop_length=128,
+                                      verbose=False, device="cpu")
+    X = torch.randn(1, 24, 6, 2, generator=torch.Generator().manual_seed(5))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        state = s.init_state(1)
+        for a in range(0, 6, 3):
+            state, _ = s.step(state, X[:, :, a:a + 3])
+        s.flush(state)
+    events, table = prof.events(), profiling.span_table()
+    step = "nnaudio.stream.step.StreamingInverseCQT"
+    flush = "nnaudio.stream.flush.StreamingInverseCQT"
+    assert (table[step].count, table[step].outer) == (2, 2)
+    assert (table[flush].count, table[flush].outer) == (1, 1)
+    assert (table["nnaudio.stream.carry"].count, table["nnaudio.stream.carry"].outer) == (2, 0)
+    assert {_port_parent(e) for e in events if e.name == "nnaudio.stream.carry"} == {step}
+
+
+#: four steps and a flush: 2.5 MB of K3's operand copies a launch
+SYNTH_TABLE = MappingProxyType({
+    SYNTH_STEP: _row(4, 4, 4e6, 1e6),
+    "nnaudio.stream.flush.StreamingiSTFT": _row(1, 1, 1e5, 1e5),
+    "nnaudio.stream.envelope": _row(4, 0, 6e5, 6e5),
+    "nnaudio.stream.carry": _row(4, 0, 4e5, 4e5),
+    "nnaudio.wrap.K3": _row(4, 0, 2e6, 1.2e6, 4, 16, 10_000_000),
+    "nnaudio.launch.K3": _row(4, 0, 8e5, 8e5),
+})
+SYNTH_READINGS = {  # per outermost span: 4 steps and 1 flush
+    "host_self_ms.step.synth": 0.2, "host_self_ms.carry.synth": 0.08,
+    "host_self_ms.envelope.synth": 0.12, "operand_copy_mb_per_step.synth": 2.0,
+    "kernels_per_step.synth": 1.5,
+}
+
+
+def _synth_trace():
+    Launch = bench_trace.Launch
+    k3 = ("nnaudio.launch.K3", "nnaudio.wrap.K3", SYNTH_STEP)
+    return bench_trace.Trace(
+        window_s=1.0, busy_s=0.5, kernel_s={},
+        launches=[Launch("synthesis_tc_kernel", 1e-4, k3), Launch("copy", 1e-6, k3[1:]),
+                  Launch("fold", 1e-6, ("aten::col2im", "nnaudio.stream.envelope", SYNTH_STEP)),
+                  Launch("cat", 1e-6, ("aten::cat", "nnaudio.stream.carry", SYNTH_STEP)),
+                  Launch("cat", 1e-6, ("aten::cat", "nnaudio.stream.carry", SYNTH_STEP)),
+                  Launch("div", 1e-6, ("aten::div", SYNTH_STEP)),
+                  Launch("div", 1e-6, ("aten::div", "nnaudio.stream.flush.StreamingiSTFT"))],
+        idle_by_host=[], stats={}, host_stats={"attempted": 4})
+
+
+@pytest.mark.parametrize("metric", list(SYNTH_READINGS))
+def test_synthesis_reader_on_a_made_up_table_and_trace(monkeypatch, metric):
+    monkeypatch.setattr(spans, "device_stretch_table", lambda: SYNTH_TABLE)
+    got = harness.reader(metric)(_context(_synth_trace()))
+    assert got == pytest.approx(SYNTH_READINGS[metric])
+
+
+@pytest.mark.parametrize("metric", list(SYNTH_READINGS))
+def test_synthesis_reader_of_a_port_without_the_step_span_reads_nothing(monkeypatch, metric):
+    """A port whose synthesis step opens no span (K3's wrapper and launch
+    alone) reads nothing, not zero."""
+    table = {k: v for k, v in SYNTH_TABLE.items() if "stream" not in k}
+    monkeypatch.setattr(spans, "device_stretch_table", lambda: MappingProxyType(table))
+    t = _synth_trace()
+    t.launches = [bench_trace.Launch(l.kernel, l.seconds, tuple(c for c in l.chain
+                                                                 if "stream" not in c)
+                                     + ("bench_port.call",)) for l in t.launches]
+    assert harness.reader(metric)(_context(t)) is None
+
+
+def test_the_k3_roofline_of_a_synthesis_step_counts_its_block():
+    """128 streams of 4 frames at n_fft 1024, hop 256: K3 reads the spectra
+    (2,101,248 B) and writes 1,792 samples a stream (917,504 B); bytes bound
+    it, so ten launches in 1 ms of K3 read 100 x 10 x 3,018,752 / 3.35e12 /
+    1e-3."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cell = harness.find_cell(bench, "istft1024_24k.synth_128x4", ROOT)
+    trace = _synth_trace()
+    trace.kernel_s = {"void synthesis_tc_kernel<float, 128, false>": 1e-3, "fold": 1.0}
+    trace.stats = {"shapes": {(128, 4, 1024, False, False): 10}}
+    ctx = harness.Context(cell=cell, window={}, trace=trace, work=harness.work(cell))
+    got = harness.reader("roofline_pct.K3.synth")(ctx)
+    assert got == pytest.approx(100 * 10 * 3_018_752 / 3.35e12 / 1e-3)
+    assert harness.reader("roofline_pct.K3.synth")(_context(None)) is None
