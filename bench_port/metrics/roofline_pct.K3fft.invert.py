@@ -1,0 +1,8 @@
+"""roofline_pct.K3fft.invert: the least time of the inversion's syntheses (K3, n_iter + 1 a call) over the device time of K3's FFT route (synthesis_fft_ola_kernel), where a frozen Fourier synthesis basis takes it."""
+from bench_port.reduce import roofline_pct
+
+
+def read(ctx):
+    if ctx.trace is None:
+        return None
+    return roofline_pct(ctx, "K3", ctx.trace.seconds_of("synthesis_fft_ola_kernel"))

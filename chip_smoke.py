@@ -35,7 +35,12 @@ from a fixed constant):
     (the slice shapes' bases) in fp32 storage takes its FFT route
     (``csrc/framed_fft.cu``, counted as ``framed_filterbank_fft``), every
     other basis and bf16 storage dense K2; each case also holds dense K2
-    itself against the plain version;
+    itself against the plain version. K3 has two routes as well: an iSTFT's
+    frozen Fourier factors in fp32 storage take its FFT route (the same
+    source, counted as ``synthesis_ola_fft``), held against its plain mirror,
+    the dense plain version and fp64 at the Griffin-Lim cell's, the
+    synthesis stream's and (b)'s shapes, an odd hop, and the halves of a
+    (B, F, T, 2) stack, twice for bit equality;
  4. the slice through the public entry points, with the launch counts set
     to 0 before each path and read after it:
     (a) the flagship SpectrogramClassifier answering 4 requests of
@@ -178,13 +183,20 @@ PROFILE_NAMES = {"framed_magnitude": "framed_tc_kernel",
                  "synthesis_ola": "synthesis_tc_kernel", "gl_step": "framed_tc_kernel",
                  "framed_pair": "framed_tc_kernel",
                  "framed_magnitude_kchunk": "kchunk_tc_kernel",
-                 "framed_filterbank_fft": "framed_fft_filterbank_kernel"}
+                 "framed_filterbank_fft": "framed_fft_filterbank_kernel",
+                 "synthesis_ola_fft": "synthesis_fft_ola_kernel"}
 
 
 def k2_route(mode):
     """The launch counter of K2 for a frozen Fourier basis in a precision
     mode: its FFT route in fp32 storage, dense K2 in bf16 storage."""
     return "framed_filterbank" if mode == "default" else "framed_filterbank_fft"
+
+
+def k3_route(mode):
+    """The launch counter of K3 for an iSTFT's frozen Fourier factors in a
+    precision mode: its FFT route in fp32 storage, dense K3 in bf16."""
+    return "synthesis_ola" if mode == "default" else "synthesis_ola_fft"
 
 
 def fft_frame_flops(n, nnz):
@@ -452,6 +464,7 @@ def main() -> int:
                                             InverseMelSpectrogram, MelSpectrogram,
                                             PitchShift, STFT, TimeStretch, VQT, iSTFT,
                                             phase_vocoder, resample)
+    from nnaudio_tpu_torch.features.stft import hermitian_weights
     from nnaudio_tpu_torch.models import SpectrogramClassifier
     from nnaudio_tpu_torch.ops import build, dispatch as td, framed_kernels as fk
 
@@ -886,6 +899,46 @@ def main() -> int:
     if sums != {False, True}:
         fail(f"K3's cases launched only one kind of fp32 sum: {sums}")
     config.set_matmul_precision("highest")
+    # K3's FFT route, through an iSTFT's route for its own factors: against
+    # its plain mirror, the dense plain version and fp64 (at most the plain
+    # version's error), twice for bit equality
+    for label, b, t, n, hop, stack in (("(e) 1024/256", 32, 862, 1024, 256, False),
+                                       ("stream step", 128, 4, 1024, 256, True),
+                                       ("slice (b)", 32, 431, 2048, 512, True),
+                                       ("hop 127", 4, 300, 512, 127, False),
+                                       ("hop = n_fft", 3, 17, 4096, 4096, True)):
+        ist_r = iSTFT(n_fft=n, hop_length=hop, verbose=False, device=dev)
+        fft = ist_r._synthesis_fft.bind(ist_r.kernel_cos, ist_r.kernel_sin, ist_r.window_mask)
+        f = n // 2 + 1
+        wt = hermitian_weights(n, f, device=dev)[:, None]
+        kc = ist_r.kernel_cos[:f] * wt * ist_r.window_mask / n
+        ks = ist_r.kernel_sin[:f] * wt * ist_r.window_mask / n
+        sre, sim = randn(b, f, t), randn(b, f, t)
+        if stack:  # the halves of a (B, F, T, 2) stack, as iSTFT's callers hand them
+            X = torch.stack((sre, sim), -1)
+            sre, sim = X[..., 0], X[..., 1]
+        fk.reset_launches()
+        k3 = fk.synthesis_ola(sre, sim, kc, ks, hop, fft=fft)
+        torch.cuda.synchronize()
+        routed = fk.LAUNCHES["synthesis_ola_fft"] == 1 and fk.LAUNCHES["synthesis_ola"] == 0
+        same = torch.equal(k3, fk.synthesis_ola(sre, sim, kc, ks, hop, fft=fft))
+        mirror = fk.synthesis_ola_fft_plain(sre, sim, ist_r.window_mask / n, hop)
+        plain = fk.synthesis_ola_plain(sre, sim, kc, ks, hop)
+        ref = synthesis_fp64(sre, sim, kc, ks, hop)
+        e_mirror, e_plain = rel_err(k3, mirror), rel_err(k3, plain)
+        e_kernel, e_plain64 = rel_err(k3, ref), rel_err(plain, ref)
+        ok = routed and same and e_mirror <= 1e-6 and e_plain <= TOL["highest"] \
+            and e_kernel <= 4 * e_plain64
+        if label == "(e) 1024/256":
+            max_abs["synthesis_ola_fft"] = float((k3 - mirror).abs().max())
+        log(f"[check] highest  K3 FFT {label:12s} B={b} T={t} N={n} hop={hop}"
+            f"{' (stack halves)' if stack else ''}: vs its mirror {e_mirror:.2e} (tol 1e-06), "
+            f"vs dense plain {e_plain:.2e}; against fp64: kernel {e_kernel:.2e}, plain "
+            f"fp32 version {e_plain64:.2e} (limit 4x); second launch {'bit-equal' if same else 'DIFFERS'}"
+            f"{'' if routed else '; NOT ROUTED'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K3's FFT route disagrees with its mirror, fp64 or itself: {label}")
+        del sre, sim, k3, mirror, plain, ref
 
     # ------------------------------------------------- 4. the serving slice --
     # a numpy rfft oracle at a small input first
@@ -1059,11 +1112,12 @@ def main() -> int:
         inv2, gl2 = inverse_mel(2), griffin_lim(2)
         drive("(e) mel -> audio, 2 Griffin-Lim iterations",
               lambda: inv2(mel_e(xh)), shape_e, tol=GL_TOL["default"],
-              expect={k2_route("highest"): 1, "gl_step": 2, "synthesis_ola": 3})
+              expect={k2_route("highest"): 1, "gl_step": 2, "synthesis_ola": 2,
+                      "synthesis_ola_fft": 1})
         S_f = st_f(xh)
         drive("(f) Griffin-Lim fp32, 2 iterations", lambda: gl2(S_f), shape_f,
               tol=GL_TOL["highest"],
-              expect={"framed_pair": 2, "synthesis_ola": 3})
+              expect={"framed_pair": 2, "synthesis_ola_fft": 3})
 
         n_iter = 32
         inv, gl = inverse_mel(n_iter), griffin_lim(n_iter)
@@ -1072,9 +1126,9 @@ def main() -> int:
         for label, fn, shape, st, target, expect in (
                 ("(e) mel -> audio", lambda: inv(mel_e(xh)), shape_e, st_e,
                  target_e, {k2_route("highest"): 1, "gl_step": n_iter,
-                            "synthesis_ola": n_iter + 1}),
+                            "synthesis_ola": n_iter, "synthesis_ola_fft": 1}),
                 ("(f) Griffin-Lim fp32", lambda: gl(S_f), shape_f, st_f, S_f,
-                 {"framed_pair": n_iter, "synthesis_ola": n_iter + 1})):
+                 {"framed_pair": n_iter, "synthesis_ola_fft": n_iter + 1})):
             (audio,), dt, counts = counted(label, fn, shape, expect)
             sc = spectral_convergence(st, audio, target)
             sc_plain = spectral_convergence(st, plain_path(fn), target)
@@ -1590,11 +1644,11 @@ def main() -> int:
         e5 = rel_err(X_k, X_p)
         for label, fn, shape, expect in (
                 ("TimeStretch rate 0.8", lambda: ts(xr, rate=0.8),
-                 (batch, round(xr.shape[1] / 0.8)), {"framed_pair": 1, "synthesis_ola": 1}),
+                 (batch, round(xr.shape[1] / 0.8)), {"framed_pair": 1, "synthesis_ola_fft": 1}),
                 ("TimeStretch rate 1.25", lambda: ts(xr, rate=1.25),
-                 (batch, round(xr.shape[1] / 1.25)), {"framed_pair": 1, "synthesis_ola": 1}),
+                 (batch, round(xr.shape[1] / 1.25)), {"framed_pair": 1, "synthesis_ola_fft": 1}),
                 ("PitchShift n_steps=7", lambda: ps(xr, n_steps=7), tuple(xr.shape),
-                 {"framed_pair": 1, "synthesis_ola": 1}),
+                 {"framed_pair": 1, "synthesis_ola_fft": 1}),
                 ("resample 22050 -> 16000", lambda: resample(xr, sr_b, 16000),
                  (batch, 160000), {})):
             (y,), dt, counts = counted(f"(r) {label}", fn, shape, expect)
@@ -1751,7 +1805,7 @@ def main() -> int:
                            device=dev)(xs_noise), "cqt"),
         ("StreamingiSTFT 2048/512",
          lambda fuse: streaming.StreamingiSTFT(2048, 512, fuse=fuse, device=dev),
-         "synthesis_ola", st_frames, 1,
+         "synthesis_ola_fft", st_frames, 1,
          lambda: iSTFT(2048, hop_length=512, center=False, verbose=False, device=dev)(
              torch.cat(st_frames, dim=2), onesided=True), "istft"),
         ("StreamingInverseCQT (h)",
@@ -1764,6 +1818,8 @@ def main() -> int:
         for label, make, kernel, feed, axis, offline, tol_key in stream_specs:
             if kernel == "framed_filterbank":
                 kernel = k2_route(mode)
+            elif kernel == "synthesis_ola_fft":
+                kernel = k3_route(mode)
             s = make(None)
             synthesis = axis == 1
             with torch.no_grad():
@@ -2167,6 +2223,43 @@ def main() -> int:
                     + 4 * batch * (n3 + hop * (t3 - 1)),
                     shape=f"B={batch} F={f3} T={t3} n_fft={n3} hop={hop}")
                 del sre, sim
+            if mode == "highest":
+                # K3's FFT route at the Griffin-Lim cell's call (B=32, T=862)
+                # and the synthesis stream's step (B=128, T=4), 1024/256:
+                # beside dense K3 on the same spectra, its mirror, and
+                # torch.fft.irfft + F.fold as the library's yardstick. Its
+                # bound counts an inverse real FFT and the overlap-add's adds
+                # a frame (bench_port/work); the bytes, the spectra in and
+                # the signal out
+                ist_e = iSTFT(n_fft=1024, hop_length=256, verbose=False, device=dev)
+                w_e = ist_e.window_mask
+                fft_e = ist_e._synthesis_fft.bind(ist_e.kernel_cos, ist_e.kernel_sin, w_e)
+                hw = hermitian_weights(1024, 513, device=dev)[:, None]
+                kc_e = ist_e.kernel_cos[:513] * hw * w_e / 1024
+                ks_e = ist_e.kernel_sin[:513] * hw * w_e / 1024
+
+                def irfft_lib(sre, sim, hop=256):
+                    fr = torch.fft.irfft(torch.complex(sre, sim), 1024, dim=1) * w_e[:, None]
+                    out_len = 1024 + hop * (sre.shape[-1] - 1)
+                    return F.fold(fr, output_size=(1, out_len), kernel_size=(1, 1024),
+                                  stride=(1, hop))
+                for key, b3, t3 in (("synthesis_ola_fft", batch, 862),
+                                    ("synthesis_ola_fft stream", 128, 4)):
+                    sre, sim = randn(b3, 513, t3), randn(b3, 513, t3)
+                    args = (sre, sim, kc_e, ks_e, 256)
+                    rows[key] = dict(
+                        ms=kernel_ms(lambda: fk.synthesis_ola(*args, fft=fft_e)),
+                        dense_ms=kernel_ms(lambda: fk.synthesis_ola(*args)),
+                        plain_ms=kernel_ms(lambda: fk.synthesis_ola_fft_plain(
+                            sre, sim, w_e / 1024, 256)),
+                        library_ms=kernel_ms(lambda: irfft_lib(sre, sim)),
+                        library="torch.fft.irfft + F.fold",
+                        flops=b3 * t3 * (2.5 * 1024 * np.log2(1024) + 1024),
+                        bytes=4 * (2 * b3 * 513 * t3 + b3 * (1024 + 256 * (t3 - 1))),
+                        shape=f"B={b3} F=513 T={t3} n_fft=1024 hop=256")
+                    log(f"[time] highest  {key}: dense K3 on the same spectra "
+                        f"{rows[key]['dense_ms']:.3f} ms")
+                    del sre, sim
             # K5 at (b)'s shape (the fp32 Griffin-Lim loop's analysis, (f))
             rows["framed_pair"] = dict(
                 ms=kernel_ms(lambda: fk.framed_pair(x, wc, ws, 512)),
@@ -2321,6 +2414,8 @@ def main() -> int:
                                     "nnaudio_tpu/ops/framed_matmul.py:482", "highest"),
         "framed_filterbank_fft": ("nnaudio_tpu_torch/csrc/framed_fft.cu",
                                   "nnaudio_tpu/ops/framed_matmul.py:296", "highest"),
+        "synthesis_ola_fft": ("nnaudio_tpu_torch/csrc/framed_fft.cu",
+                              "nnaudio_tpu/ops/framed_matmul.py:878", "highest"),
     }
     kernels = []
     for k, (src, replaces, mode) in meta.items():

@@ -1,6 +1,8 @@
 // K2's FFT route on Hopper (sm_90a): for a frozen Fourier basis, a real FFT
 // of each frame, its power and a banded filterbank projection in one pass,
-// on the CUDA cores.
+// on the CUDA cores. K3's FFT route, the inverse real FFT of each frame and
+// its overlap-add, shares the passes and the twiddle table (below the
+// analysis kernel).
 //
 // Stands beside nnaudio_tpu/ops/framed_matmul.py:
 //   K2  _filterbank_kernel  :296  (launched by _framed_filterbank)
@@ -513,6 +515,307 @@ extern "C" int nnaudio_framed_filterbank_fft_twiddles(int n, int m) {
     case 2048: return twiddles_if_fits<10>(m);
     case 4096: return twiddles_if_fits<11>(m);
     case 8192: return twiddles_if_fits<12>(m);
+    default: return 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3's FFT route: for a frozen Fourier synthesis basis, an inverse real FFT
+// of each frame, windowed and overlap-added in the same kernel.
+//
+// Stands beside nnaudio_tpu/ops/framed_matmul.py:
+//   K3  _synthesis_ola_kernel  :878  (launched by _synthesis_ola)
+// which computes OLA(kc^T Re - ks^T Im) as a dense product with the kernels,
+// as the port's dense K3 (synthesis_ola.cu, synthesis_tc_kernel) does. Where
+// the kernels are the Hermitian-weighted Fourier basis times w / N (the
+// transform's SynthesisFFTRoute checks its factors once, ops/framed_kernels.py
+// build_synthesis_fft_plan), this kernel computes
+//   y[b, t*hop + k] += w[k] / N * sum_f c_f (Re[b,f,t] cos(2 pi f k / N)
+//                                          - Im[b,f,t] sin(2 pi f k / N))
+// (c_f = 1 at DC and Nyquist, 2 between: an unnormalised inverse real FFT)
+// for fp32 spectra (B, N/2 + 1, T) read by their own strides (unit along T
+// for planar carries, 2 for the halves of a (B, F, T, 2) stack), N a power
+// of two in [64, 8192] and 1 <= hop <= N, into y (B, N + hop*(T-1)).
+//
+// What bounds it on the H100: the spectra read once and the signal written
+// once (at cell 5's B=32, T=862, N=1024, hop 256: 113.2 + 28.3 MB, 42.3 us at
+// 3.35 TB/s); the inverse FFT is ~2.5 N log2 N operations a frame (0.7 GFLOP
+// a call, 1.1 us at the fp32 peak). Bytes, then: the design reads each bin
+// of a frame once from device memory along T, keeps the frame in shared
+// memory through its FFT and the overlap-add, and writes each sample once.
+//
+// Design:
+// - A block owns `owned` rows of hop samples of one batch item, [s0, s1),
+//   and computes every frame that reaches them: owned + ceil(N/hop) - 1
+//   frames, the first ceil(N/hop) - 1 of them also computed by the block
+//   before (the halo); `owned` fills whole rounds of C frames where a
+//   block's accumulator of SYNTH_ACC_FLOATS samples holds its rows.
+// - A round stages C consecutive frames' N/2 + 1 bins into the C teams'
+//   buffers, consecutive threads on consecutive frames of one bin (the
+//   loads run along T), then each team of P threads takes one frame as K2's
+//   route does: the onesided bins are unpacked into N/2 points
+//   V[f] = E - i W_N^f D (E = conj X[f] + X[N/2-f], D = conj X[f] - X[N/2-f],
+//   the imaginary parts of DC and Nyquist dropped) and the forward Stockham
+//   passes of the analysis kernel run on them: FFT(V) = conj(IFFT(conj V)),
+//   so the frame's samples 2j and 2j + 1 are Re and -Im of point j.
+// - Samples 1 and N - 1 of a frame are summed apart, in float64: a window
+//   that tapers to 0 is smallest there, and the envelope of a center=False
+//   signal divides its first and last samples by that window's square
+//   (w[1]^2 ~ 1.4e-9 for a Hann of 512), which would turn the FFT's rounding
+//   (a fraction of an fp32 unit of the frame's largest sample, as any fp32
+//   FFT's) into hundreds of units of the signal's. A thread's bins
+//   f = p + r N/64 lie at the turns 2 pi p / N + r pi / 32, so while it
+//   unpacks it sums Re_f and Im_f times cos(r pi / 32) and sin(r pi / 32)
+//   (constants) in float64, and turns the four sums by 2 pi p / N at the end
+//   (ops/framed_kernels.py's synthesis_edge, one float64 pair a thread): no
+//   table read a bin. After the passes one thread of the team adds the P
+//   threads' sums in order of p and writes A - B and A + B, rounded once, in
+//   place of the FFT's samples 1 and N - 1.
+// - Then each thread adds, for the samples it owns in [s0, s1), the round's
+//   frames in order of t, each sample times w[k] / N, into the block's
+//   accumulator in shared memory; the block writes it out once its frames
+//   are done. Every sample is one block's, summed from zero over its frames
+//   in order of t: no atomics, the same bits on every run, whatever the
+//   block's rows.
+// ops/framed_kernels.py's synthesis_ola_fft_plain repeats this arithmetic
+// in PyTorch.
+
+namespace {
+
+// cos(t pi / 32) for t in [0, 16] in float64, each rounded once
+__device__ __forceinline__ constexpr double cos_pi32(int t) {
+  return t == 0 ? 1.0
+       : t == 1 ? 0x1.fd88da3d12526p-1
+       : t == 2 ? 0x1.f6297cff75cb0p-1
+       : t == 3 ? 0x1.e9f4156c62ddap-1
+       : t == 4 ? 0x1.d906bcf328d46p-1
+       : t == 5 ? 0x1.c38b2f180bdb1p-1
+       : t == 6 ? 0x1.a9b66290ea1a3p-1
+       : t == 7 ? 0x1.8bc806b151741p-1
+       : t == 8 ? 0x1.6a09e667f3bcdp-1
+       : t == 9 ? 0x1.44cf325091dd6p-1
+       : t == 10 ? 0x1.1c73b39ae68c9p-1
+       : t == 11 ? 0x1.e2b5d3806f63ep-2
+       : t == 12 ? 0x1.87de2a6aea964p-2
+       : t == 13 ? 0x1.294062ed59f05p-2
+       : t == 14 ? 0x1.8f8b83c69a60dp-3
+       : t == 15 ? 0x1.917a6bc29b438p-4
+       : 0.0;
+}
+
+constexpr int SYNTH_ACC_FLOATS = 8192;  // samples of a block's accumulator, at most
+constexpr int STAGE = 8;                // bins a thread loads before it stores them
+
+// Shared memory of a synthesis block: the threads' two float64 sums of the
+// edge samples, the C frames' buffers, then the accumulator of `acc` samples.
+template <int LOG2H>
+constexpr size_t synth_smem_bytes(int acc) {
+  using S = Shape<LOG2H>;
+  return 16 * static_cast<size_t>(S::THREADS) + 8 * static_cast<size_t>(S::C) * S::STRIDE +
+         4 * static_cast<size_t>(acc);
+}
+
+// grid: one block per `owned` rows of hop samples of one batch item
+template <int LOG2H>
+__global__ void __launch_bounds__(Shape<LOG2H>::THREADS, MIN_BLOCKS)
+synthesis_fft_ola_kernel(const float* __restrict__ sre, const float* __restrict__ sim,
+                         long long sb, long long sf, long long st,
+                         const float* __restrict__ scale, const float2* __restrict__ twiddle,
+                         const double2* __restrict__ edge_w, float* __restrict__ y, int T,
+                         int hop, int length, int owned, int chunks) {
+  using S = Shape<LOG2H>;
+  constexpr int MP = S::H / RADIX;  // the first pass's stride, in points
+  extern __shared__ __align__(16) unsigned char smem[];
+  double2* edge = reinterpret_cast<double2*>(smem);                // a thread's (A, B)
+  float2* buf = reinterpret_cast<float2*>(edge + S::THREADS);      // C frames of STRIDE
+  float* acc = reinterpret_cast<float*>(buf + S::C * S::STRIDE);  // owned * hop samples
+
+  const int tid = threadIdx.x;
+  const int team = tid / S::P, p = tid % S::P;
+  float2* z = buf + team * S::STRIDE;
+  const int b = blockIdx.x / chunks, chunk = blockIdx.x - b * chunks;
+  const int r0 = chunk * owned, s0 = r0 * hop;
+  const int s1 = min(s0 + owned * hop, length);
+  // the frames that reach [s0, s1): t*hop + N > s0 and t*hop < s1
+  const int tf0 = max(0, r0 - (S::N + hop - 1) / hop + 1);
+  const int tf1 = min(T, r0 + owned);
+  const float* re = sre + static_cast<long long>(b) * sb;
+  const float* im = sim + static_cast<long long>(b) * sb;
+  for (int i = tid; i < s1 - s0; i += S::THREADS) acc[i] = 0.f;
+
+  for (int ta = tf0; ta < tf1; ta += S::C) {
+    const int frames = min(S::C, tf1 - ta);
+    // the round's bins, frame i of the round into team i's buffer: STAGE
+    // loads of each plane in flight a thread before their stores
+    constexpr int ITEMS = (S::H + 1) * S::C;
+    for (int e0 = tid; e0 < ITEMS; e0 += STAGE * S::THREADS) {
+      float2 got[STAGE];
+#pragma unroll
+      for (int u = 0; u < STAGE; ++u) {
+        const int e = e0 + u * S::THREADS, i = e & (S::C - 1), f = e >> S::LOG2C;
+        const long long at = f * sf + (ta + i) * st;
+        got[u] = e < ITEMS && i < frames ? make_float2(__ldg(re + at), __ldg(im + at))
+                                         : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < STAGE; ++u) {
+        const int e = e0 + u * S::THREADS;
+        if (e < ITEMS) buf[(e & (S::C - 1)) * S::STRIDE + pad16(e >> S::LOG2C)] = got[u];
+      }
+    }
+    __syncthreads();
+
+    // every team runs (a team past the round's frames on what its buffer
+    // holds, unread), since teams of fewer than 32 threads share a warp's
+    // barrier: the unpacking into the first pass, its DFT, placed, then the
+    // passes after it
+    float2 v[RADIX];
+    // the edge samples' sums over this thread's bins: Re and Im times
+    // cos(r pi / 32) and sin(r pi / 32)
+    double rc = 0.0, rs = 0.0, ic = 0.0, is = 0.0;
+#pragma unroll
+    for (int r = 0; r < RADIX; ++r) {
+      const int f = p + r * MP;
+      float2 a = z[pad16(f)], c = z[pad16(S::H - f)];
+      if (r == 0 && p == 0) a.y = c.y = 0.f;  // DC and Nyquist are real
+      const double cr = r <= 16 ? cos_pi32(r) : -cos_pi32(32 - r);
+      const double sr = r <= 16 ? cos_pi32(16 - r) : cos_pi32(r - 16);
+      const double re = a.x, im = a.y;
+      rc = fma(re, cr, rc);
+      rs = fma(re, sr, rs);
+      ic = fma(im, cr, ic);
+      is = fma(im, sr, is);
+      const float2 wd = cmul(make_float2(a.x - c.x, -a.y - c.y), __ldg(twiddle + f));
+      v[r] = make_float2(a.x + c.x + wd.y, c.y - a.y - wd.x);
+    }
+    {  // turned by 2 pi p / N, weighted 2 (c_f), less DC once and Nyquist (cos(pi) = -1)
+      const double2 e = __ldg(edge_w + p);
+      double ea = 2.0 * (e.x * rc - e.y * rs);
+      if (p == 0) ea -= static_cast<double>(z[0].x) + z[pad16(S::H)].x;
+      edge[tid] = make_double2(ea, 2.0 * (e.y * ic + e.x * is));
+    }
+    dft<RADIX>(v);
+    team_sync<S::P, S::THREADS>(team);
+    put<ilog2(RADIX), 0>(z, p, v);
+    team_sync<S::P, S::THREADS>(team);
+    fft_passes<LOG2H, ilog2(RADIX)>(z, p, team, twiddle);
+    if (p == 0) {  // A - B and A + B for samples 1 and N - 1, stored as -Im
+      double sa = 0.0, sb = 0.0;
+      for (int q = 0; q < S::P; ++q) {
+        sa += edge[tid + q].x;
+        sb += edge[tid + q].y;
+      }
+      float* fz = reinterpret_cast<float*>(z);
+      fz[1] = -static_cast<float>(sa - sb);
+      fz[2 * pad16(S::H - 1) + 1] = -static_cast<float>(sa + sb);
+    }
+    __syncthreads();
+
+    // the round's frames into the samples this thread owns, in order of t
+    for (int i = 0; i < frames; ++i) {
+      const int base = (ta + i) * hop;
+      const float* fz = reinterpret_cast<const float*>(buf + i * S::STRIDE);
+      const int lo = max(s0, base), hi = min(s1, base + S::N);
+      const int first = s0 + tid;
+      int s = lo <= first ? first : first + (lo - first + S::THREADS - 1) / S::THREADS * S::THREADS;
+      for (; s < hi; s += S::THREADS) {
+        const int k = s - base;
+        const float u = fz[2 * pad16(k >> 1) + (k & 1)];
+        acc[s - s0] += (k & 1 ? -u : u) * __ldg(scale + k);
+      }
+    }
+    __syncthreads();
+  }
+  float* out = y + static_cast<long long>(b) * length;
+  for (int i = tid; i < s1 - s0; i += S::THREADS) out[s0 + i] = acc[i];
+}
+
+template <int LOG2H>
+int launch_synthesis(const float* sre, const float* sim, long long sb, long long sf,
+                     long long st, const float* scale, const float2* twiddle,
+                     const double2* edge, float* y, int B, int T, int hop,
+                     cudaStream_t stream) {
+  using S = Shape<LOG2H>;
+  if (B < 1 || T < 1 || hop < 1 || hop > S::N) return cudaErrorInvalidValue;
+  const long long length = S::N + static_cast<long long>(hop) * (T - 1);
+  if (length > (1LL << 31) - 1) return cudaErrorInvalidValue;
+  // rows a block owns: its frames, owned + nch - 1, in whole rounds of C
+  // where the accumulator holds the rows (else as many rows as it holds),
+  // at most the signal's; fewer by whole rounds where that leaves blocks
+  // for every SM and a round's frames still outnumber the halo
+  const int nch = (S::N + hop - 1) / hop;
+  const int fit = SYNTH_ACC_FLOATS / hop;
+  const int rows = static_cast<int>((length + hop - 1) / hop);
+  int owned = (fit + nch - 1) / S::C * S::C - (nch - 1);
+  if (owned < 1) owned = fit;
+  if (owned > rows) owned = rows;
+  const long long resident = 2LL * device_sms();
+  while (owned - S::C >= nch - 1 && owned > S::C &&
+         static_cast<long long>(B) * ((rows + owned - 1) / owned) < resident)
+    owned -= S::C;
+  const int chunks = (rows + owned - 1) / owned;
+  const long long grid = static_cast<long long>(B) * chunks;
+  if (grid > (1LL << 31) - 1) return cudaErrorInvalidValue;
+  const size_t bytes = synth_smem_bytes<LOG2H>(owned * hop);
+  static bool opened[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (bytes > 48 * 1024 && !opened[dev]) {
+    err = cudaFuncSetAttribute(synthesis_fft_ola_kernel<LOG2H>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err != cudaSuccess) return err;
+    opened[dev] = true;
+  }
+  synthesis_fft_ola_kernel<LOG2H><<<static_cast<unsigned>(grid), S::THREADS, bytes, stream>>>(
+      sre, sim, sb, sf, st, scale, twiddle, edge, y, T, hop, static_cast<int>(length), owned,
+      chunks);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// y (B, n + hop*(T-1)) fp32 <- the spectra sre, sim (B, n/2 + 1, T) fp32 at
+// strides (sb, sf, st) elements, n a power of two in [64, 8192], 1 <= hop <=
+// n; scale (n,) the window over n, twiddle and edge (n/64 float64 pairs)
+// from ops/framed_kernels.py's SynthesisFFTPlan. Returns a cudaError_t.
+extern "C" int nnaudio_synthesis_fft(const void* sre, const void* sim, long long sb,
+                                     long long sf, long long st, const void* scale,
+                                     const void* twiddle, const void* edge, void* y, int B,
+                                     int T, int n, int hop, void* stream) {
+  const float* re = static_cast<const float*>(sre);
+  const float* im = static_cast<const float*>(sim);
+  const float* sc = static_cast<const float*>(scale);
+  const float2* tw = static_cast<const float2*>(twiddle);
+  const double2* ed = static_cast<const double2*>(edge);
+  float* o = static_cast<float*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n) {
+    case 64: return launch_synthesis<5>(re, im, sb, sf, st, sc, tw, ed, o, B, T, hop, s);
+    case 128: return launch_synthesis<6>(re, im, sb, sf, st, sc, tw, ed, o, B, T, hop, s);
+    case 256: return launch_synthesis<7>(re, im, sb, sf, st, sc, tw, ed, o, B, T, hop, s);
+    case 512: return launch_synthesis<8>(re, im, sb, sf, st, sc, tw, ed, o, B, T, hop, s);
+    case 1024: return launch_synthesis<9>(re, im, sb, sf, st, sc, tw, ed, o, B, T, hop, s);
+    case 2048: return launch_synthesis<10>(re, im, sb, sf, st, sc, tw, ed, o, B, T, hop, s);
+    case 4096: return launch_synthesis<11>(re, im, sb, sf, st, sc, tw, ed, o, B, T, hop, s);
+    case 8192: return launch_synthesis<12>(re, im, sb, sf, st, sc, tw, ed, o, B, T, hop, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The length of the twiddle table the synthesis kernel reads for frames of
+// n samples, or 0 where n is not a power of two in [64, 8192].
+extern "C" int nnaudio_synthesis_fft_twiddles(int n) {
+  switch (n) {
+    case 64: return pass_offset(5, 5);
+    case 128: return pass_offset(6, 6);
+    case 256: return pass_offset(7, 7);
+    case 512: return pass_offset(8, 8);
+    case 1024: return pass_offset(9, 9);
+    case 2048: return pass_offset(10, 10);
+    case 4096: return pass_offset(11, 11);
+    case 8192: return pass_offset(12, 12);
     default: return 0;
   }
 }

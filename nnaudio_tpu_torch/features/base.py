@@ -71,6 +71,12 @@ class SpectralTransform(nn.Module):
             self.register_buffer(name, t)
         return getattr(self, name)
 
+    def _holds(self, params: Mapping[str, torch.Tensor], *names: str) -> bool:
+        """Whether ``params`` gives this transform's own tensors under
+        ``names``, none passed in: only then may a route kept for them
+        (``framed_kernels.FFTRoute``, ``SynthesisFFTRoute``) serve the call."""
+        return all(params[k] is getattr(self, k) for k in names)
+
     def _hold(self, name: str, module: nn.Module) -> None:
         """Keep a helper transform without registering it as a submodule, so
         its tensors do not appear a second time in the state under a dotted

@@ -1,7 +1,8 @@
 """Fast Griffin-Lim phase recovery.
 
 Each iteration synthesises the carried spectrum (iSTFT: the K3 kernel for
-CUDA tensors), analyses the signal again, and takes a momentum step towards
+CUDA tensors, on its FFT route for the transform's own factors in fp32
+storage), analyses the signal again, and takes a momentum step towards
 the target magnitudes. The loop carries the magnitude-imposed spectrum ``c``
 and the last analysis ``r`` as planar (B, F, T) re/im tensors, in bf16 for
 ``iter_precision='default'`` and fp32 for ``'highest'``.
@@ -28,7 +29,7 @@ from ..core.overlap import normalize_by_window_envelope, window_sumsquare
 from ..filters.fourier import create_fourier_basis
 from ..filters.windows import pad_center, window_dispatch
 from ..ops.dispatch import framed_basis_pair, gl_step, synthesis_ola
-from ..ops.framed_kernels import gl_update
+from ..ops.framed_kernels import SynthesisFFTRoute, gl_update
 from .base import SpectralTransform, to_float32
 from .stft import hermitian_weights
 
@@ -93,11 +94,13 @@ class Griffin_Lim(SpectralTransform):
         self._register("kernel_sin_inv", basis.wsin * wt)
         self._register("kernel_cos_inv", basis.wcos * wt)
         self._register("window_mask", w)
+        # its own frozen synthesis factors: K3 may take its FFT route
+        self._synthesis_fft = SynthesisFFTRoute(weighted=True)
 
-    def _synthesize(self, spec_re, spec_im, kc, ks, w_sum):
+    def _synthesize(self, spec_re, spec_im, kc, ks, w_sum, fft=None):
         """Planar iSTFT: synthesis + overlap-add, envelope, center trim."""
         signal = normalize_by_window_envelope(
-            synthesis_ola(spec_re, spec_im, kc, ks, self.hop_length), w_sum)
+            synthesis_ola(spec_re, spec_im, kc, ks, self.hop_length, fft=fft), w_sum)
         if self.center:
             return signal[:, self.pad_amount:-self.pad_amount]
         return signal
@@ -129,6 +132,9 @@ class Griffin_Lim(SpectralTransform):
         w_sum = window_sumsquare(params["window_mask"], t, hop, self.n_fft)
         w = params["window_mask"][None, :] / self.n_fft
         kc, ks = params["kernel_cos_inv"] * w, params["kernel_sin_inv"] * w
+        factors = ("kernel_cos_inv", "kernel_sin_inv", "window_mask")
+        fft = (self._synthesis_fft.bind(*(params[k] for k in factors))
+               if self._holds(params, *factors) else None)
         wcos, wsin = params["wcos"], params["wsin"]
         c_re = (S * torch.cos(2 * np.pi * rand_phase)).to(carry)
         c_im = (S * torch.sin(2 * np.pi * rand_phase)).to(carry)
@@ -139,7 +145,7 @@ class Griffin_Lim(SpectralTransform):
             set_matmul_precision("default")
         try:
             for _ in range(self.n_iter):
-                signal = self._synthesize(c_re, c_im, kc, ks, w_sum)
+                signal = self._synthesize(c_re, c_im, kc, ks, w_sum, fft)
                 if self.center:
                     signal = pad_signal(signal, self.pad_amount, self.pad_mode)
                 if fused:
@@ -151,7 +157,7 @@ class Griffin_Lim(SpectralTransform):
                                                        mom)
         finally:
             set_matmul_precision(prev)
-        return self._synthesize(c_re.float(), c_im.float(), kc, ks, w_sum)
+        return self._synthesize(c_re.float(), c_im.float(), kc, ks, w_sum, fft)
 
     def forward(self, S, rand_phase=None, generator=None):
         return self.apply(None, S, rand_phase=rand_phase, generator=generator)

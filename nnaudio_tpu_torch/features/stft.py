@@ -32,7 +32,7 @@ from ..ops.dispatch import (
     framed_power,
     synthesis_ola,
 )
-from ..ops.framed_kernels import FFTRoute
+from ..ops.framed_kernels import FFTRoute, SynthesisFFTRoute
 from .base import SpectralTransform
 
 
@@ -59,6 +59,7 @@ def _inverse_stft_graph(
     center: bool,
     pad_amount: int,
     fold_onesided: bool = True,
+    route: SynthesisFFTRoute | None = None,
 ):
     """Shared iSTFT math (reference ``STFTBase.inverse_stft``).
 
@@ -67,12 +68,17 @@ def _inverse_stft_graph(
     With frozen kernels the onesided path folds Hermitian symmetry into bin
     weights instead of mirroring the spectrum (``fold_onesided=False`` keeps
     the explicit mirror, which a trainable full kernel bank needs so that its
-    upper-half rows receive gradients).
+    upper-half rows receive gradients). ``route``: the caller's K3 FFT route
+    (``weighted=False``), where the kernels and window are the tensors it
+    holds; the folded path hands it to the synthesis.
     """
+    fft = None
     if onesided and fold_onesided and X.shape[1] == n_fft // 2 + 1:
         wt = hermitian_weights(n_fft, X.shape[1], X.dtype, X.device)
         kc = kernel_cos[: X.shape[1]] * wt[:, None]
         ks = kernel_sin[: X.shape[1]] * wt[:, None]
+        if route is not None:
+            fft = route.bind(kernel_cos, kernel_sin, window_mask)
     else:
         if onesided:
             X = extend_fbins(X)
@@ -81,7 +87,7 @@ def _inverse_stft_graph(
     # kernel columns so synthesis + overlap-add runs as one op
     kc = kc * window_mask[None, :] / n_fft
     ks = ks * window_mask[None, :] / n_fft
-    signal = synthesis_ola(X[..., 0], X[..., 1], kc, ks, hop)
+    signal = synthesis_ola(X[..., 0], X[..., 1], kc, ks, hop, fft=fft)
     w_sum = window_sumsquare(window_mask, X.shape[2], hop, n_fft)
     signal = normalize_by_window_envelope(signal, w_sum)
     if length is None:
@@ -167,6 +173,7 @@ class STFT(SpectralTransform):
         self.output_format = output_format
         self.iSTFT = iSTFT
         self._fft_route = FFTRoute()
+        self._synthesis_fft = SynthesisFFTRoute(weighted=False)
 
         basis = create_fourier_basis(
             n_fft,
@@ -250,8 +257,7 @@ class STFT(SpectralTransform):
         where ``params`` holds this frozen STFT's own bases too, K2 may take
         its FFT route (``framed_kernels.FFTRoute``, kept here)."""
         if power == 2.0:
-            own = (own_basis and not self.trainable and params["wcos"] is self.wcos
-                   and params["wsin"] is self.wsin)
+            own = own_basis and not self.trainable and self._holds(params, "wcos", "wsin")
             return framed_filterbank(self._padded(x), params["wcos"],
                                      params["wsin"], basis, self.stride, eps=eps,
                                      fft=self._fft_route if own else None)
@@ -279,7 +285,7 @@ class STFT(SpectralTransform):
         return _inverse_stft_graph(
             X, params["kernel_cos_inv"], params["kernel_sin_inv"],
             params["window_mask"], self.n_fft, self.stride, onesided, length,
-            self.center, self.pad_amount,
+            self.center, self.pad_amount, route=self._synthesis_fft,
         )
 
     def extra_repr(self) -> str:
@@ -351,10 +357,14 @@ class iSTFT(SpectralTransform):
         self._register("kernel_cos", basis.wcos, trainable=trainable_kernels)
         self._register("window_mask", window_mask, trainable=trainable_window)
         self.trainable_kernels = trainable_kernels
+        # its own synthesis factors: K3 may take its FFT route where they are
+        # frozen
+        self._synthesis_fft = SynthesisFFTRoute(weighted=False)
         self._verbose_print(verbose, f"iSTFT kernels created: n_fft={n_fft}")
 
     def _forward(self, params, X, onesided=False, length=None):
         _check_complex(X)
+        own = self._holds(params, "kernel_cos", "kernel_sin", "window_mask")
         return _inverse_stft_graph(
             X,
             params["kernel_cos"],
@@ -369,6 +379,7 @@ class iSTFT(SpectralTransform):
             # trainable full banks keep the explicit mirror so the upper-half
             # kernel rows receive gradients
             fold_onesided=not self.trainable_kernels,
+            route=self._synthesis_fft if own else None,
         )
 
     def forward(self, X, onesided=False, length=None, refresh_win=None):

@@ -11,7 +11,8 @@ in which case it takes the plain version on every device:
 - ``framed_magnitude``, ``framed_power``: K6, the split-K form of K1, for a
   bank of at most 128 bins and at least :data:`KCHUNK_MIN_N` samples (the CQT
   family's wavelet banks), else K1; ``framed_filterbank``: K2;
-- ``synthesis_ola``: K3;
+- ``synthesis_ola``: K3 (its FFT route where the caller hands over its
+  ``SynthesisFFTRoute``);
 - ``gl_step``: K4, one Griffin-Lim analysis step.
 
 Under autograd (grad enabled and an operand that requires grad) the
@@ -126,11 +127,13 @@ def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0, fft=None):
     return fk.framed_filterbank_plain(x, wcos, wsin, fb, hop, eps=eps)
 
 
-def synthesis_ola(spec_re, spec_im, kc, ks, hop):
+def synthesis_ola(spec_re, spec_im, kc, ks, hop, fft=None):
     """iSTFT synthesis: (B, F, T) spectra x (F, n_fft) fully weighted kernels
-    -> (B, n_fft + hop*(T-1)) overlap-added signal, ``OLA(kc^T Re - ks^T Im)``."""
+    -> (B, n_fft + hop*(T-1)) overlap-added signal, ``OLA(kc^T Re - ks^T Im)``.
+    ``fft``: the caller's ``framed_kernels.SynthesisFFTRoute`` bound to the
+    factors it holds, where ``kc`` and ``ks`` are made of them."""
     if _synthesis_on():
-        return fk.synthesis_ola(spec_re, spec_im, kc, ks, hop)
+        return fk.synthesis_ola(spec_re, spec_im, kc, ks, hop, fft=fft)
     return fk.synthesis_ola_plain(spec_re, spec_im, kc, ks, hop)
 
 

@@ -6,6 +6,7 @@ wrapper                      CUDA kernel (``csrc/``)         TPU kernel replaced
 ``framed_magnitude``         ``framed_tc.cu`` K1             ``_magnitude_kernel``
 ``framed_filterbank``        ``framed_tc.cu`` K2             ``_filterbank_kernel``
 ``synthesis_ola``            ``synthesis_ola.cu`` K3         ``_synthesis_ola_kernel``
+                             (``framed_fft.cu``, FFT route)
 ``gl_step``                  ``framed_tc.cu`` K4             ``_gl_step_kernel``
 ``framed_pair``              ``framed_tc.cu`` K5             ``_pair_kernel``
 ``framed_magnitude_kchunk``  ``framed_kchunk.cu`` K6         ``_magnitude_kchunk_kernel``
@@ -22,7 +23,13 @@ storage (the pair is the windowed DFT of ``wcos[0]``, recognised once per
 basis by the transform's :class:`FFTRoute`) takes ``framed_fft.cu``, a real FFT of each frame on the
 CUDA cores, its power and the filterbank's bands of nonzero columns
 (:func:`framed_filterbank_fft_plain` repeats its arithmetic); every other
-basis takes the tensor-core K2.
+basis takes the tensor-core K2. K3 has the same second route: where a
+transform's own synthesis factors are the Hermitian-weighted Fourier basis
+(recognised once per basis by its :class:`SynthesisFFTRoute`), fp32 spectra
+take ``framed_fft.cu``'s inverse real FFT of each frame and its overlap-add
+(:func:`synthesis_ola_fft_plain`), read where they lie; every other synthesis
+(the inverse CQT's dual atoms, K5's backward, trainable bases) takes the
+tensor-core K3.
 
 K1, K2, K4 and K5 are one tensor-core kernel (``wgmma``) with four
 epilogues. In fp32 storage it takes three TF32 products of operands split as
@@ -59,6 +66,7 @@ gradient. On the CPU the plain versions differentiate through autograd.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -75,7 +83,7 @@ from ..core.frame import frame_signal, frames_to_signal, num_frames
 LAUNCHES: dict[str, int] = {"framed_magnitude": 0, "framed_filterbank": 0,
                             "synthesis_ola": 0, "gl_step": 0,
                             "framed_pair": 0, "framed_magnitude_kchunk": 0,
-                            "framed_filterbank_fft": 0}
+                            "framed_filterbank_fft": 0, "synthesis_ola_fft": 0}
 
 
 def reset_launches() -> None:
@@ -260,6 +268,25 @@ def fft_twiddles(n: int, device=None) -> torch.Tensor:
     return torch.from_numpy(np.concatenate(parts).astype(np.float32)).to(device)
 
 
+def synthesis_edge(n: int, device=None) -> torch.Tensor:
+    """K3's FFT route's turns of its threads' edge sums (:func:`_edge_samples`),
+    (n/64, 2) float64: ``cos(2 pi p / n)`` and ``sin(2 pi p / n)`` for the
+    team's threads p."""
+    a = 2.0 * np.pi * np.arange(n // 64) / n
+    return torch.from_numpy(np.stack((np.cos(a), np.sin(a)), 1)).to(device)
+
+
+def _cos_sin_pi32():
+    """cos and sin of r pi / 32 for r in [0, 32), float64, from the 17 values
+    of cos(t pi / 32), t in [0, 16], that the kernel holds as constants."""
+    k = np.cos(np.arange(17) * np.pi / 32)
+    k[16] = 0.0
+    r = np.arange(32)
+    cos = np.where(r <= 16, k[np.minimum(r, 16)], -k[np.clip(32 - r, 0, 16)])
+    sin = np.where(r <= 16, k[np.clip(16 - r, 0, 16)], k[np.clip(r - 16, 0, 16)])
+    return torch.from_numpy(cos), torch.from_numpy(sin)
+
+
 def _cmul(ar, ai, wr, wi):
     return ar * wr - ai * wi, ar * wi + ai * wr
 
@@ -341,6 +368,75 @@ def fft_power_plain(frames, window, eps=0.0):
     lower, upper = [(xr * xr + xi * xi) * 0.25 + eps
                     for xr, xi in ((er + qi, ei - qr), (er - qi, ei + qr))]
     return torch.cat((lower, upper[..., :-1].flip(-1)), -1)
+
+
+def _edge_samples(re, im):
+    """Samples 1 and N - 1 of :func:`irfft_plain`'s frames as the kernel sums
+    them, in float64, each rounded once to fp32: ``A - B`` and ``A + B``, with
+    ``A = sum_f c_f Re_f cos(2 pi f / N)`` and ``B = sum_f c_f Im_f sin(2 pi f
+    / N)``. Thread p's bins f = p + r N/64 lie at the turns 2 pi p / N + r pi
+    / 32: each thread sums Re and Im times cos and sin of r pi / 32
+    (:func:`_cos_sin_pi32`), turns the sums by 2 pi p / N
+    (:func:`synthesis_edge`) and weights them 2; DC is taken off once and
+    Nyquist (cos pi = -1) added. A tapering window is smallest beside a
+    frame's ends, and the envelope of a ``center=False`` signal divides its
+    first and last samples by that window's square (w[1]^2 ~ 1.4e-9 for a
+    Hann of 512): the FFT's rounding, a fraction of an fp32 unit of the
+    frame's largest sample, would come out of that division hundreds of
+    units of the signal's. (..., N/2 + 1) planes, their imaginary parts of
+    DC and Nyquist zero -> two (...,) fp32."""
+    h = re.shape[-1] - 1
+    turn = synthesis_edge(2 * h, re.device)
+    cos, sin = (t.to(re.device) for t in _cos_sin_pi32())
+    # (..., r, p): bin f = p + r N/64
+    rr, ii = (x[..., :h].double().reshape(*x.shape[:-1], 32, h // 32) for x in (re, im))
+    rc, rs = (rr * cos[:, None]).sum(-2), (rr * sin[:, None]).sum(-2)
+    ic, is_ = (ii * cos[:, None]).sum(-2), (ii * sin[:, None]).sum(-2)
+    dc, nyquist = re[..., 0].double(), re[..., h].double()
+    a = (2.0 * (turn[:, 0] * rc - turn[:, 1] * rs)).sum(-1) - (dc + nyquist)
+    b = (2.0 * (turn[:, 1] * ic + turn[:, 0] * is_)).sum(-1)
+    return (a - b).float(), (a + b).float()
+
+
+def irfft_plain(spec_re, spec_im):
+    """The unnormalised inverse real FFT of (..., N/2 + 1) onesided spectra as
+    K3's FFT route computes it, ``y[k] = sum_f c_f (Re_f cos(2 pi f k / N) -
+    Im_f sin(2 pi f k / N))`` with ``c_f`` 1 at DC and Nyquist (whose
+    imaginary parts are not read) and 2 between: for each f of [0, N/2), with
+    ``a = X[f]``, ``c = X[N/2 - f]``, the point ``V[f] = E - i W_N^f D``
+    (``E = conj a + c``, ``D = conj a - c``), then the FFT of V by
+    :func:`_fft_stockham`, whose point j is ``y[2j] - i y[2j+1]``; samples 1
+    and N - 1 are then :func:`_edge_samples`'. -> (..., N)."""
+    h = spec_re.shape[-1] - 1
+    n = 2 * h
+    table = fft_twiddles(n, spec_re.device)
+    f = torch.arange(h, device=spec_re.device)
+    re, im = spec_re.float(), spec_im.float().clone()
+    im[..., 0] = im[..., h] = 0.0
+    ar, ai, cr, ci = re[..., f], im[..., f], re[..., h - f], im[..., h - f]
+    wr, wi = _cmul(ar - cr, -ai - ci, table[f, 0], table[f, 1])
+    yr, yi = _fft_stockham(ar + cr + wi, ci - ai - wr, table)
+    y = torch.stack((yr, -yi), -1).reshape(*yr.shape[:-1], n)
+    y[..., 1], y[..., n - 1] = _edge_samples(re, im)
+    return y
+
+
+def synthesis_ola_fft_plain(spec_re, spec_im, scale, hop):
+    """K3's FFT route in plain PyTorch, with the kernel's arithmetic: each
+    frame's :func:`irfft_plain` times ``scale`` (the window over N), then
+    overlap-added from zero in order of t. (B, N/2 + 1, T) spectra -> (B, N +
+    hop*(T-1)). It computes :func:`synthesis_ola_plain` where the kernels are
+    the Hermitian-weighted Fourier basis times ``scale``
+    (:func:`build_synthesis_fft_plan`)."""
+    b, f, t = spec_re.shape
+    n = 2 * (f - 1)
+    frames = irfft_plain(spec_re.transpose(1, 2), spec_im.transpose(1, 2)) * scale.float()
+    n_chunks = _ceil_div(n, hop)
+    chunks = F.pad(frames, (0, n_chunks * hop - n)).reshape(b, t, n_chunks, hop)
+    rows = frames.new_zeros((b, t + n_chunks - 1, hop))
+    for c in reversed(range(n_chunks)):  # row r adds its frames r - c in order of t
+        rows[:, c:c + t] += chunks[:, :, c]
+    return rows.reshape(b, -1)[:, :n + hop * (t - 1)]
 
 
 def filterbank_bands(fb):
@@ -592,6 +688,10 @@ _SIGNATURES = {
         "framed_fft",
         [_VOID] * 6 + [_INT] * 7 + [ctypes.c_float, _VOID]),
     "nnaudio_framed_filterbank_fft_twiddles": ("framed_fft", [_INT] * 2),
+    "nnaudio_synthesis_fft": (
+        "framed_fft",
+        [_VOID, _VOID] + [ctypes.c_longlong] * 3 + [_VOID] * 4 + [_INT] * 4 + [_VOID]),
+    "nnaudio_synthesis_fft_twiddles": ("framed_fft", [_INT]),
 }
 #: the span of each C entry's launch
 _LAUNCH_SPANS = {"nnaudio_framed_magnitude": "nnaudio.launch.K1",
@@ -601,7 +701,8 @@ _LAUNCH_SPANS = {"nnaudio_framed_magnitude": "nnaudio.launch.K1",
                  "nnaudio_framed_pair": "nnaudio.launch.K5",
                  "nnaudio_framed_magnitude_kchunk": "nnaudio.launch.K6",
                  "nnaudio_kchunk_ranges": "nnaudio.launch.K6",
-                 "nnaudio_framed_filterbank_fft": "nnaudio.launch.K2"}
+                 "nnaudio_framed_filterbank_fft": "nnaudio.launch.K2",
+                 "nnaudio_synthesis_fft": "nnaudio.launch.K3"}
 _fns: dict[str, object] = {}
 
 
@@ -872,16 +973,17 @@ class FFTPlan(NamedTuple):
     m: int
 
 
-def _fourier_mismatch(wcos, wsin):
+def _fourier_mismatch(wcos, wsin, window=None, weights=None):
     """A 0-d bool on the bases' device, unread (no synchronisation): whether
-    an entry of ``(wcos, wsin)`` (F, N) lies off ``w[k] cos(2 pi f k / N)``
-    (or sin), with ``w = wcos[0]``, by more than :data:`FOURIER_ULPS` units
-    of its own value plus ``FOURIER_FLOOR * max |w|`` (the float64
-    reference's own error near the zeros of cos and sin, at the largest
-    phases); a NaN is off. Rows go by chunks of at most 4M entries."""
+    an entry of ``(wcos, wsin)`` (F, N) lies off ``weights[f] w[k] cos(2 pi f
+    k / N)`` (or sin), with ``w = wcos[0]`` (or ``window``) and ``weights``
+    ones where not given, by more than :data:`FOURIER_ULPS` units of its own
+    value plus ``FOURIER_FLOOR * max |w|`` (the float64 reference's own error
+    near the zeros of cos and sin, at the largest phases); a NaN is off. Rows
+    go by chunks of at most 4M entries."""
     f, n = wcos.shape
     dev = wcos.device
-    w = wcos[0].detach().double()
+    w = (wcos[0] if window is None else window).detach().double()
     floor = FOURIER_FLOOR * w.abs().max()
     k = torch.arange(n, device=dev)
     off = torch.zeros((), dtype=torch.bool, device=dev)
@@ -890,7 +992,7 @@ def _fourier_mismatch(wcos, wsin):
         rows = torch.arange(f0, min(f, f0 + step), device=dev)
         turn = (rows[:, None] * k % n).double() * (2.0 * np.pi / n)
         for basis, ref in ((wcos, torch.cos(turn)), (wsin, torch.sin(turn))):
-            ref = ref * w
+            ref = ref * w if weights is None else ref * w * weights[rows, None]
             err = (basis[f0:f0 + rows.numel()].detach().double() - ref).abs()
             off |= ~(err <= FOURIER_ULPS * 2.0 ** -23 * ref.abs() + floor).all()
     return off
@@ -934,24 +1036,39 @@ def build_fft_plan(wcos, wsin, fb) -> FFTPlan | None:
                    vals=_band_values(fb, lo, off, length, nnz), m=fb.shape[0])
 
 
-class FFTRoute:
-    """K2's FFT route as one transform holds it for its own bases and
-    filterbank. The transform hands it to :func:`framed_filterbank` only
-    where the call's ``wcos``, ``wsin`` and ``fb`` are the tensors it holds,
-    so a basis passed in (a ``params`` override, the new parameters of a
-    training step) takes dense K2 unchecked. :meth:`plan` builds the plan at
-    the route's first call on the card (:func:`build_fft_plan`: one
-    comparison in float64, the band packing, one synchronisation) and again
-    only after one of the three tensors was replaced or changed in place
-    (its version, which ``update_params``, ``load_state_dict`` and in-place
-    ops bump); after that a call compares three tensors and their versions.
-    A write through ``.data`` bumps no version: make it with an in-place op
-    under ``torch.no_grad()``."""
+class _StampedRoute:
+    """An FFT route's plan as one transform holds it for three of its own
+    tensors: built at the route's first call (one comparison in float64, one
+    synchronisation) and again only after one of the three was replaced or
+    changed in place (its version, which ``update_params``,
+    ``load_state_dict`` and in-place ops bump); after that a call compares
+    three tensors and their versions. A write through ``.data`` bumps no
+    version: make it with an in-place op under ``torch.no_grad()``."""
 
     def __init__(self) -> None:
         self._ops: tuple = ()
         self._stamp: tuple = ()
-        self._plan: FFTPlan | None = None
+        self._plan = None
+
+    def _kept(self, build, a, b, c, *args):
+        """The plan ``build(a, b, c, *args)`` made for these tensors as they
+        are now, kept from an earlier call where they are unchanged."""
+        stamp = (a._version, b._version, c._version, a.data_ptr(), b.data_ptr(), c.data_ptr())
+        ops = self._ops
+        if not (ops and ops[0] is a and ops[1] is b and ops[2] is c and stamp == self._stamp):
+            self._plan = build(a, b, c, *args)
+            self._ops, self._stamp = (a, b, c), stamp
+        return self._plan
+
+
+class FFTRoute(_StampedRoute):
+    """K2's FFT route as one transform holds it for its own bases and
+    filterbank. The transform hands it to :func:`framed_filterbank` only
+    where the call's ``wcos``, ``wsin`` and ``fb`` are the tensors it holds,
+    so a basis passed in (a ``params`` override, the new parameters of a
+    training step) takes dense K2 unchecked. The plan
+    (:func:`build_fft_plan`: the basis's check, the band packing) is kept as
+    :class:`_StampedRoute` keeps it."""
 
     def plan(self, wcos, wsin, fb) -> FFTPlan | None:
         """The plan for these operands, or None, which leaves them to dense
@@ -959,14 +1076,89 @@ class FFTRoute:
         unchecked."""
         if storage_dtype() != torch.float32 or wcos.requires_grad or wsin.requires_grad:
             return None
-        stamp = (wcos._version, wsin._version, fb._version,
-                 wcos.data_ptr(), wsin.data_ptr(), fb.data_ptr())
-        ops = self._ops
-        if not (ops and ops[0] is wcos and ops[1] is wsin and ops[2] is fb
-                and stamp == self._stamp):
-            self._plan = build_fft_plan(wcos, wsin, fb)
-            self._ops, self._stamp = (wcos, wsin, fb), stamp
-        return self._plan
+        return self._kept(build_fft_plan, wcos, wsin, fb)
+
+
+class SynthesisFFTPlan(NamedTuple):
+    """What K3's FFT route reads besides the spectra, made once per basis:
+    the window over N (N,), the twiddle table (:func:`fft_twiddles`) and the
+    edge samples' weights (:func:`synthesis_edge`)."""
+    scale: torch.Tensor
+    twiddle: torch.Tensor
+    edge: torch.Tensor
+
+
+def _synthesis_kernel_takes(n: int) -> bool:
+    """Whether ``csrc/framed_fft.cu``'s synthesis kernel runs frames of ``n``
+    samples: the length of the twiddle table it reads (0 where it cannot),
+    which has to be :func:`fft_twiddles`'s."""
+    length = _fn("nnaudio_synthesis_fft_twiddles")(n)
+    if length and length != fft_pass_offsets(n // 2)[-1]:
+        raise RuntimeError(f"framed_fft.cu's synthesis reads {length} twiddles at n_fft {n}, "
+                           f"fft_twiddles makes {fft_pass_offsets(n // 2)[-1]}")
+    return length > 0
+
+
+def build_synthesis_fft_plan(kernel_cos, kernel_sin, window, weighted) -> SynthesisFFTPlan | None:
+    """K3's FFT route's plan for a transform's synthesis factors, or None
+    where they are not its operands: fp32 kernels of at least N/2 + 1 rows
+    of N, N a power of two in [64, 8192], whose first N/2 + 1 rows are the
+    Fourier basis ``cos(2 pi f k / N)`` (and sin), times the Hermitian fold
+    weights (1 at DC and Nyquist, 2 between) where ``weighted``
+    (:func:`_fourier_mismatch`, with a unit window), and an fp32 window (N,);
+    on the card, an N that the kernel takes (:func:`_synthesis_kernel_takes`).
+    One synchronisation."""
+    n = kernel_cos.shape[-1]
+    f = n // 2 + 1
+    if not (kernel_cos.ndim == 2 and FFT_MIN_N <= n <= FFT_MAX_N and n & (n - 1) == 0
+            and kernel_sin.shape == kernel_cos.shape and kernel_cos.shape[0] >= f
+            and kernel_cos.dtype == kernel_sin.dtype == window.dtype == torch.float32
+            and tuple(window.shape) == (n,)):
+        return None
+    if kernel_cos.is_cuda and not _synthesis_kernel_takes(n):
+        return None
+    dev = kernel_cos.device
+    weights = None
+    if weighted:
+        weights = torch.full((f,), 2.0, dtype=torch.float64, device=dev)
+        weights[0] = weights[-1] = 1.0
+    unit = torch.ones(n, dtype=torch.float64, device=dev)
+    if _fourier_mismatch(kernel_cos[:f], kernel_sin[:f], unit, weights).item():
+        return None
+    return SynthesisFFTPlan(scale=window.detach() / n, twiddle=fft_twiddles(n, dev),
+                            edge=synthesis_edge(n, dev))
+
+
+class SynthesisFFTRoute(_StampedRoute):
+    """K3's FFT route as one transform holds it for its own synthesis
+    factors: the kernels ``kernel_cos`` and ``kernel_sin`` and the window.
+    ``weighted``: the kernels' rows carry the Hermitian fold weights
+    (``Griffin_Lim``'s ``kernel_*_inv``), else the call multiplies them in
+    (``iSTFT``'s ``kernel_cos`` / ``kernel_sin``). The plan
+    (:func:`build_synthesis_fft_plan`) is keyed to these factors, never to
+    the products ``kc = kernel * window / N`` that a call makes, and kept as
+    :class:`_StampedRoute` keeps it. The transform hands :meth:`bind`'s
+    result to :func:`synthesis_ola` only where the call's factors are the
+    tensors it holds, so a basis passed in takes dense K3 unchecked."""
+
+    def __init__(self, weighted: bool) -> None:
+        super().__init__()
+        self.weighted = weighted
+
+    def plan(self, kernel_cos, kernel_sin, window) -> SynthesisFFTPlan | None:
+        """The plan for these factors, or None, which leaves the synthesis to
+        dense K3. Factors that require grad, and bf16 storage, take dense K3
+        unchecked."""
+        if (storage_dtype() != torch.float32 or kernel_cos.requires_grad
+                or kernel_sin.requires_grad or window.requires_grad):
+            return None
+        return self._kept(build_synthesis_fft_plan, kernel_cos, kernel_sin, window,
+                          self.weighted)
+
+    def bind(self, kernel_cos, kernel_sin, window):
+        """The ``fft`` argument of :func:`synthesis_ola` for these factors:
+        a call that gives their plan (or None)."""
+        return functools.partial(self.plan, kernel_cos, kernel_sin, window)
 
 
 def _launch_filterbank_fft(x, wcos, wsin, fb, hop, eps, plan):
@@ -1025,61 +1217,97 @@ def _launch_gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom):
 
 
 def _launch_synthesis(spec_re, spec_im, kc, ks, hop):
-    with span("nnaudio.wrap.K3"):
-        _check_cuda(spec_re)
-        dev = spec_re.device
-        sre = _operand(spec_re, "spec_re", 3, dev)
-        sim = _operand(spec_im, "spec_im", 3, dev)
-        kcs = _operand(kc, "kc", 2, dev)
-        kss = _operand(ks, "ks", 2, dev)
-        if sre.shape != sim.shape or kcs.shape != kss.shape \
-                or kcs.shape[0] != sre.shape[1]:
-            raise ValueError(
-                f"shapes differ: spec_re {tuple(sre.shape)}, spec_im "
-                f"{tuple(sim.shape)}, kc {tuple(kcs.shape)}, ks {tuple(kss.shape)}")
-        if hop < 1:
-            raise ValueError(f"hop must be >= 1, got {hop}")
-        b, f, t = sre.shape
-        n = kcs.shape[1]
-        bf16 = sre.dtype == torch.bfloat16
-        # the kernels transposed to (N, Fp), Fp = F rounded up to a K chunk, zeros
-        # past F: the K-major A operand that TF32 products need, with rows that
-        # TMA can read (16-byte aligned)
-        fp = _ceil_div(f, SYNTH_BK[sre.dtype]) * SYNTH_BK[sre.dtype]
-        kct = torch.zeros((n, fp), dtype=sre.dtype, device=dev)
-        kst = torch.zeros_like(kct)
-        kct[:, :f] = kcs.t()
-        kst[:, :f] = kss.t()
-        copied(kct)
-        copied(kst)
-        # the kernel copies the spectra in 16-byte pieces from 16-byte aligned
-        # rows: pad each row with zeros to a multiple of a piece
-        per16 = 16 // sre.element_size()
-        tp = _ceil_div(t, per16) * per16
-        if tp != t:
-            sre, sim = (copied(F.pad(a, (0, tp - t))) for a in (sre, sim))
-        elif sre.data_ptr() % 16 or sim.data_ptr() % 16:
-            sre, sim = copied(sre.clone()), copied(sim.clone())
-        out = torch.empty((b, n + hop * (t - 1)), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            _run("nnaudio_synthesis_ola", sre.data_ptr(), sim.data_ptr(),
-                 kct.data_ptr(), kst.data_ptr(), out.data_ptr(), b, f, t, tp, n,
-                 hop, fp, int(bf16), _stream())
-        LAUNCHES["synthesis_ola"] += 1
-        return out
+    """Dense K3, inside the wrapper's span (:class:`_SynthesisOLA`)."""
+    _check_cuda(spec_re)
+    dev = spec_re.device
+    sre = _operand(spec_re, "spec_re", 3, dev)
+    sim = _operand(spec_im, "spec_im", 3, dev)
+    kcs = _operand(kc, "kc", 2, dev)
+    kss = _operand(ks, "ks", 2, dev)
+    if sre.shape != sim.shape or kcs.shape != kss.shape \
+            or kcs.shape[0] != sre.shape[1]:
+        raise ValueError(
+            f"shapes differ: spec_re {tuple(sre.shape)}, spec_im "
+            f"{tuple(sim.shape)}, kc {tuple(kcs.shape)}, ks {tuple(kss.shape)}")
+    if hop < 1:
+        raise ValueError(f"hop must be >= 1, got {hop}")
+    b, f, t = sre.shape
+    n = kcs.shape[1]
+    bf16 = sre.dtype == torch.bfloat16
+    # the kernels transposed to (N, Fp), Fp = F rounded up to a K chunk, zeros
+    # past F: the K-major A operand that TF32 products need, with rows that
+    # TMA can read (16-byte aligned)
+    fp = _ceil_div(f, SYNTH_BK[sre.dtype]) * SYNTH_BK[sre.dtype]
+    kct = torch.zeros((n, fp), dtype=sre.dtype, device=dev)
+    kst = torch.zeros_like(kct)
+    kct[:, :f] = kcs.t()
+    kst[:, :f] = kss.t()
+    copied(kct)
+    copied(kst)
+    # the kernel copies the spectra in 16-byte pieces from 16-byte aligned
+    # rows: pad each row with zeros to a multiple of a piece
+    per16 = 16 // sre.element_size()
+    tp = _ceil_div(t, per16) * per16
+    if tp != t:
+        sre, sim = (copied(F.pad(a, (0, tp - t))) for a in (sre, sim))
+    elif sre.data_ptr() % 16 or sim.data_ptr() % 16:
+        sre, sim = copied(sre.clone()), copied(sim.clone())
+    out = torch.empty((b, n + hop * (t - 1)), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _run("nnaudio_synthesis_ola", sre.data_ptr(), sim.data_ptr(),
+             kct.data_ptr(), kst.data_ptr(), out.data_ptr(), b, f, t, tp, n,
+             hop, fp, int(bf16), _stream())
+    LAUNCHES["synthesis_ola"] += 1
+    return out
+
+
+def _launch_synthesis_fft(spec_re, spec_im, hop, plan):
+    """K3's FFT route, inside the wrapper's span, for a hop of at most N: the
+    fp32 spectra read where they lie, by their strides (two planes of
+    different strides made contiguous), the window and twiddles from
+    ``plan``."""
+    _check_cuda(spec_re)
+    dev = plan.scale.device
+    n = plan.scale.shape[0]
+    for t, name in ((spec_re, "spec_re"), (spec_im, "spec_im")):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.ndim != 3 or t.shape[1] != n // 2 + 1:
+            raise ValueError(f"{name} must be (B, {n // 2 + 1}, T), got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    sre, sim = spec_re, spec_im
+    if sre.shape != sim.shape:
+        raise ValueError(f"shapes differ: spec_re {tuple(sre.shape)}, spec_im {tuple(sim.shape)}")
+    if sre.stride() != sim.stride():
+        sre, sim = (copied(p.contiguous(), p) for p in (sre, sim))
+    b, _, t = sre.shape
+    out = torch.empty((b, n + hop * (t - 1)), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _run("nnaudio_synthesis_fft", sre.data_ptr(), sim.data_ptr(), *sre.stride(),
+             plan.scale.data_ptr(), plan.twiddle.data_ptr(), plan.edge.data_ptr(),
+             out.data_ptr(), b, t, n, hop, _stream())
+    LAUNCHES["synthesis_ola_fft"] += 1
+    return out
 
 
 class _SynthesisOLA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, spec_re, spec_im, kc, ks, hop):
+    def forward(ctx, spec_re, spec_im, kc, ks, hop, fft):
         ctx.save_for_backward(spec_re, spec_im, kc, ks)
         ctx.hop = hop
-        return _launch_synthesis(spec_re, spec_im, kc, ks, hop)
+        with span("nnaudio.wrap.K3"):
+            plan = fft() if fft is not None else None
+            if plan is not None and hop <= plan.scale.shape[0]:
+                note_route("K3.fft")
+                return _launch_synthesis_fft(spec_re, spec_im, hop, plan)
+            note_route("K3.dense")
+            return _launch_synthesis(spec_re, spec_im, kc, ks, hop)
 
     @staticmethod
     def backward(ctx, g):
         return (*synthesis_ola_backward(*ctx.saved_tensors, g, ctx.hop,
-                                        ctx.needs_input_grad[:4]), None)
+                                        ctx.needs_input_grad[:4]), None, None)
 
 
 class _Pair(torch.autograd.Function):
@@ -1168,11 +1396,16 @@ def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0, fft=None):
         return _launch_filterbank(x, wcos, wsin, fb, hop, eps)
 
 
-def synthesis_ola(spec_re, spec_im, kc, ks, hop):
-    """K3: OLA(kc^T Re - ks^T Im) -> (B, N + hop*(T-1)) float32."""
+def synthesis_ola(spec_re, spec_im, kc, ks, hop, fft=None):
+    """K3: OLA(kc^T Re - ks^T Im) -> (B, N + hop*(T-1)) float32. The FFT
+    route (``csrc/framed_fft.cu``) where the caller passes ``fft``, its
+    :class:`SynthesisFFTRoute`'s :meth:`~SynthesisFFTRoute.bind` for the
+    factors that ``kc`` and ``ks`` are made of, and that route has a plan
+    for them (and ``hop <= N``); the dense tensor-core K3 for every other
+    synthesis. The backward is dense K3's on either route."""
     if not _on_card(spec_re):
         return synthesis_ola_plain(spec_re, spec_im, kc, ks, hop)
-    return _SynthesisOLA.apply(spec_re, spec_im, kc, ks, hop)
+    return _SynthesisOLA.apply(spec_re, spec_im, kc, ks, hop, fft)
 
 
 def framed_pair(x, wcos, wsin, hop):

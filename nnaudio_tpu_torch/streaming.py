@@ -50,7 +50,7 @@ from .features.base import to_float32
 from .features.stft import STFT, hermitian_weights, iSTFT
 from .ops.dispatch import (force_fuse, framed_basis_pair, framed_filterbank,
                            framed_magnitude, synthesis_ola)
-from .ops.framed_kernels import FFTRoute
+from .ops.framed_kernels import FFTRoute, SynthesisFFTRoute
 
 __all__ = [
     "StreamState",
@@ -430,7 +430,7 @@ class StreamingiSTFT:
     window-envelope tail carry to the next step. Overlap-add and the envelope
     are linear, so ``concat(steps..., flush())`` equals the offline
     ``iSTFT(center=False)(X, onesided=True)``. Each step is one synthesis
-    kernel launch (K3) for CUDA tensors.
+    kernel launch (K3, on its FFT route) for CUDA tensors.
 
     ``padding`` names the alignment as Vocos's ``ISTFT`` does: ``"none"``
     (the default) emits the ``center=False`` overlap-add from its first
@@ -474,6 +474,9 @@ class StreamingiSTFT:
             self._kc = self._ist.kernel_cos[:f] * wt[:, None] * w[None, :] / n_fft
             self._ks = self._ist.kernel_sin[:f] * wt[:, None] * w[None, :] / n_fft
             self._window = w.clone()
+        # the factors of those kernels: K3 may take its FFT route
+        self._fft = SynthesisFFTRoute(weighted=False).bind(
+            self._ist.kernel_cos, self._ist.kernel_sin, self._ist.window_mask)
 
     @property
     def overlap(self) -> int:
@@ -498,7 +501,8 @@ class StreamingiSTFT:
             tail, env_tail, *trim = state
             hop, overlap, emit = self.hop, self.overlap, t * self.hop
             with force_fuse(self.fuse):
-                sig = synthesis_ola(X[..., 0], X[..., 1], self._kc, self._ks, hop)
+                sig = synthesis_ola(X[..., 0], X[..., 1], self._kc, self._ks, hop,
+                                    fft=self._fft)
             with span("nnaudio.stream.envelope"):
                 env = window_sumsquare(self._window, t, hop, self.n_fft)
             with span("nnaudio.stream.carry"):

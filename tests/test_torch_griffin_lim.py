@@ -16,6 +16,7 @@ from nnaudio_tpu_torch import features as tf
 from nnaudio_tpu_torch.interop import load_jax_state
 from nnaudio_tpu_torch.ops import dispatch as td
 from nnaudio_tpu_torch.ops import framed_kernels as fk
+from test_torch_training import kernel_route  # noqa: F401  (a fixture: launches counted)
 
 MOM = 0.99 / 1.99
 # Griffin-Lim loop against Griffin-Lim loop (tests/test_ops.py:731,782):
@@ -358,3 +359,28 @@ def test_perturbed_jax_state_reproduces_mel_to_power():
     load_jax_state(tinv, state)
     want = jinv.mel_to_power(dict(jinv._params), jnp.asarray(mel))
     assert _rel_err(tinv.mel_to_power(tinv.params, torch.from_numpy(mel)), want) < 1e-4
+
+
+# ------------------------------------------------------- K3's FFT route --
+@pytest.mark.parametrize("n_fft,hop", [(512, 128), (1024, 256), (2048, 441)])
+def test_the_fft_routes_istft_matches_jax(kernel_route, n_fft, hop):
+    """An iSTFT's frozen Fourier factors take K3's FFT route on the card's
+    branch (its plain mirror here), and the waveform meets the JAX
+    package's iSTFT at the framed ops' 1e-4 of max |ref|."""
+    x = _tones(seconds=0.4, batch=2)
+    X = np.asarray(jf.STFT(n_fft=n_fft, hop_length=hop, verbose=False)(x))
+    want = jf.iSTFT(n_fft=n_fft, hop_length=hop, verbose=False)(
+        jnp.asarray(X), onesided=True, length=x.shape[1])
+    got = tf.iSTFT(n_fft=n_fft, hop_length=hop, verbose=False, device="cpu")(
+        X, onesided=True, length=x.shape[1])
+    assert kernel_route["synthesis_ola_fft"] == 1 and kernel_route["synthesis_ola"] == 0
+    assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("center", [True, False])
+def test_griffin_lim_on_the_fft_route_matches_jax(kernel_route, center):
+    """fp32 Griffin-Lim with every synthesis on K3's FFT route (its plain
+    mirror) against JAX's loop, at the loop's fp32 tolerance."""
+    _, _, got, want = _gl_pair(2, center, "highest")
+    assert kernel_route["synthesis_ola_fft"] == 3 and kernel_route["synthesis_ola"] == 0
+    assert _rel_err(got, want) < GL_TOL["highest"]

@@ -123,11 +123,14 @@ def test_locked_stretch_matches_jax_and_keeps_amplitude_and_pitch(rate):
 
 def _kernel_arithmetic(monkeypatch):
     """Every wrapper takes its CUDA branch, and K5 and K3 compute their fp32
-    tensor-core arithmetic (the 3xTF32 twins) in place of a launch."""
+    arithmetic in place of a launch: the 3xTF32 twins of the tensor-core
+    kernels, and K3's FFT route (the iSTFT's frozen Fourier basis) its twin."""
     from nnaudio_tpu_torch.ops import framed_kernels as fk
     monkeypatch.setattr(fk, "_on_card", lambda t: True)
     monkeypatch.setattr(fk, "_launch_pair", fk.framed_pair_3xtf32_plain)
     monkeypatch.setattr(fk, "_launch_synthesis", fk.synthesis_ola_3xtf32_plain)
+    monkeypatch.setattr(fk, "_launch_synthesis_fft", lambda sre, sim, hop, plan:
+                        fk.synthesis_ola_fft_plain(sre, sim, plan.scale, hop))
 
 
 @pytest.mark.parametrize("rate", [0.8, 2.0 ** (-7 / 12)])
@@ -180,13 +183,14 @@ def test_time_stretch_validates_rate_and_pads_the_shortfall():
 
 def test_time_stretch_launches(kernel_route):
     """On the card's route: the STFT's pair (K5) once, the iSTFT's synthesis
-    (K3) once."""
+    (K3, on its FFT route: the iSTFT's frozen Fourier basis) once."""
     ts = tf.TimeStretch(n_fft=1024, hop_length=256, device="cpu")
     with torch.no_grad():
         ts(_tone(secs=0.5), rate=0.8)
     assert kernel_route == {"framed_magnitude": 0, "framed_magnitude_kchunk": 0,
                             "framed_filterbank": 0, "framed_pair": 1,
-                            "synthesis_ola": 1, "framed_filterbank_fft": 0}
+                            "synthesis_ola": 0, "framed_filterbank_fft": 0,
+                            "synthesis_ola_fft": 1}
 
 
 # --------------------------------------------------------------- resample --

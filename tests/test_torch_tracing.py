@@ -463,3 +463,23 @@ def test_the_k3_roofline_of_a_synthesis_step_counts_its_block():
     got = harness.reader("roofline_pct.K3.synth")(ctx)
     assert got == pytest.approx(100 * 10 * 3_018_752 / 3.35e12 / 1e-3)
     assert harness.reader("roofline_pct.K3.synth")(_context(None)) is None
+
+
+@pytest.mark.parametrize("cell,metric,shape", [
+    ("istft1024_24k.synth_128x4", "roofline_pct.K3fft.synth", (128, 4, 1024, False, False)),
+    ("mel80_22k.invert_gl32", "roofline_pct.K3fft.invert", (32, 862, 32, 64))])
+def test_the_k3_fft_roofline_reads_the_routes_kernel_alone(cell, metric, shape):
+    """K3's FFT route's share reads K3's least time over synthesis_fft_ola_kernel's
+    device time, not dense K3's, and nothing where the route did not run (a
+    parent without it)."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    found = harness.find_cell(bench, cell, ROOT)
+    work = harness.work(found)
+    trace = _synth_trace()
+    trace.stats = {"shapes": {shape: 10}}
+    ctx = harness.Context(cell=found, window={}, trace=trace, work=work)
+    least = ctx.least_seconds("K3", trace.stats["shapes"])
+    trace.kernel_s = {"void synthesis_tc_kernel<float, 64, false>": 5.0}
+    assert harness.reader(metric)(ctx) is None
+    trace.kernel_s["void (anonymous namespace)::synthesis_fft_ola_kernel<9>"] = 2e-3
+    assert harness.reader(metric)(ctx) == pytest.approx(100 * least / 2e-3)

@@ -54,7 +54,7 @@ def kernel_route(monkeypatch):
     kernel, counted as the wrappers count theirs."""
     calls = {k: 0 for k in ("framed_magnitude", "framed_magnitude_kchunk",
                             "framed_filterbank", "framed_pair", "synthesis_ola",
-                            "framed_filterbank_fft")}
+                            "framed_filterbank_fft", "synthesis_ola_fft")}
 
     def launch(name, plain):
         def run(*args):
@@ -77,6 +77,9 @@ def kernel_route(monkeypatch):
     monkeypatch.setattr(fk, "_launch_pair", launch("framed_pair", fk.framed_pair_plain))
     monkeypatch.setattr(fk, "_launch_synthesis", launch(
         "synthesis_ola", fk.synthesis_ola_plain))
+    monkeypatch.setattr(fk, "_launch_synthesis_fft", launch(
+        "synthesis_ola_fft",
+        lambda sre, sim, hop, plan: fk.synthesis_ola_fft_plain(sre, sim, plan.scale, hop)))
     return calls
 
 
