@@ -464,7 +464,6 @@ def main() -> int:
                                             InverseMelSpectrogram, MelSpectrogram,
                                             PitchShift, STFT, TimeStretch, VQT, iSTFT,
                                             phase_vocoder, resample)
-    from nnaudio_tpu_torch.features.stft import hermitian_weights
     from nnaudio_tpu_torch.models import SpectrogramClassifier
     from nnaudio_tpu_torch.ops import build, dispatch as td, framed_kernels as fk
 
@@ -554,10 +553,10 @@ def main() -> int:
             k1p = fk.framed_magnitude(x, wc, ws, hop, square=True)
             torch.cuda.synchronize()
             p1p = fk.framed_magnitude_plain(x, wc, ws, hop, square=True)
-            route = fk.FFTRoute()
-            k2 = fk.framed_filterbank(x, wc, ws, fb, hop, eps=1e-8, fft=route)
+            fk.mark_own(fb)  # as a Mel's own, so that a Fourier basis takes K2's FFT route
+            k2 = fk.framed_filterbank(x, wc, ws, fb, hop, eps=1e-8)
             k2d = dense_k2(x, wc, ws, fb, hop, eps=1e-8)
-            k2_key = ("framed_filterbank_fft" if route.plan(wc, ws, fb) is not None
+            k2_key = ("framed_filterbank_fft" if fk.fft_plan(wc, ws, fb) is not None
                       else "framed_filterbank")
             torch.cuda.synchronize()
             p2 = fk.framed_filterbank_plain(x, wc, ws, fb, hop, eps=1e-8)
@@ -899,8 +898,8 @@ def main() -> int:
     if sums != {False, True}:
         fail(f"K3's cases launched only one kind of fp32 sum: {sums}")
     config.set_matmul_precision("highest")
-    # K3's FFT route, through an iSTFT's route for its own factors: against
-    # its plain mirror, the dense plain version and fp64 (at most the plain
+    # K3's FFT route, on the products of an iSTFT's own factors: against its
+    # plain mirror, the dense plain version and fp64 (at most the plain
     # version's error), twice for bit equality
     for label, b, t, n, hop, stack in (("(e) 1024/256", 32, 862, 1024, 256, False),
                                        ("stream step", 128, 4, 1024, 256, True),
@@ -908,20 +907,17 @@ def main() -> int:
                                        ("hop 127", 4, 300, 512, 127, False),
                                        ("hop = n_fft", 3, 17, 4096, 4096, True)):
         ist_r = iSTFT(n_fft=n, hop_length=hop, verbose=False, device=dev)
-        fft = ist_r._synthesis_fft.bind(ist_r.kernel_cos, ist_r.kernel_sin, ist_r.window_mask)
+        kc, ks = fk.synthesis_kernels(ist_r.kernel_cos, ist_r.kernel_sin, ist_r.window_mask)
         f = n // 2 + 1
-        wt = hermitian_weights(n, f, device=dev)[:, None]
-        kc = ist_r.kernel_cos[:f] * wt * ist_r.window_mask / n
-        ks = ist_r.kernel_sin[:f] * wt * ist_r.window_mask / n
         sre, sim = randn(b, f, t), randn(b, f, t)
         if stack:  # the halves of a (B, F, T, 2) stack, as iSTFT's callers hand them
             X = torch.stack((sre, sim), -1)
             sre, sim = X[..., 0], X[..., 1]
         fk.reset_launches()
-        k3 = fk.synthesis_ola(sre, sim, kc, ks, hop, fft=fft)
+        k3 = fk.synthesis_ola(sre, sim, kc, ks, hop)
         torch.cuda.synchronize()
         routed = fk.LAUNCHES["synthesis_ola_fft"] == 1 and fk.LAUNCHES["synthesis_ola"] == 0
-        same = torch.equal(k3, fk.synthesis_ola(sre, sim, kc, ks, hop, fft=fft))
+        same = torch.equal(k3, fk.synthesis_ola(sre, sim, kc, ks, hop))
         mirror = fk.synthesis_ola_fft_plain(sre, sim, ist_r.window_mask / n, hop)
         plain = fk.synthesis_ola_plain(sre, sim, kc, ks, hop)
         ref = synthesis_fp64(sre, sim, kc, ks, hop)
@@ -1943,10 +1939,9 @@ def main() -> int:
                  f"splits={fk.kchunk_plan(batch, t_s, n_cqt)}", t_s),
             ]
             if mode == "highest":  # K2's FFT route: fp32 storage only
-                route_s = fk.FFTRoute()
-                cases_s.append((
+                cases_s.append((  # an STFT's own bases, a Mel's own filterbank
                     "K2 FFT route",
-                    lambda: fk.framed_filterbank(x1k, wc_s, ws_s, fb_s, 512, fft=route_s),
+                    lambda: fk.framed_filterbank(x1k, wc_s, ws_s, fb_s, 512),
                     lambda: fk.framed_filterbank_plain(x1k, wc_s, ws_s, fb_s, 512),
                     batch * t_s * fft_frame_flops(n1, nnz_s),
                     4 * (x1k.numel() + batch * 128 * t_s),
@@ -1954,7 +1949,9 @@ def main() -> int:
             for syn, hop_k, name_k in ((s_istft, 512, "iSTFT"), (s_icqt, 128, "inverse CQT (h)")):
                 t_k = t_s if hop_k == 512 else 4 * t_s
                 f3, n3 = syn._kc.shape
-                args = (randn(batch, f3, t_k), randn(batch, f3, t_k), syn._kc, syn._ks, hop_k)
+                # copies, which record no factors: dense K3 on either stream's kernels
+                args = (randn(batch, f3, t_k), randn(batch, f3, t_k), syn._kc.clone(),
+                        syn._ks.clone(), hop_k)
                 cases_s.append((
                     f"K3 synthesis_ola ({name_k})",
                     lambda a=args: fk.synthesis_ola(*a),
@@ -2186,10 +2183,8 @@ def main() -> int:
                 # K2's FFT route at (c), the Mel cells' call: its bound counts
                 # a real FFT of each frame and the bank's nonzero entries
                 nnz_c = int((fb_c != 0).sum())
-                route_c = fk.FFTRoute()
-                rows["framed_filterbank_fft"] = dict(
-                    ms=kernel_ms(lambda: fk.framed_filterbank(x, wc, ws, fb_c, 512,
-                                                              fft=route_c)),
+                rows["framed_filterbank_fft"] = dict(  # the STFT's and the Mel's own
+                    ms=kernel_ms(lambda: fk.framed_filterbank(x, wc, ws, fb_c, 512)),
                     plain_ms=kernel_ms(lambda: fk.framed_filterbank_fft_plain(x, wc, ws, fb_c, 512)),
                     library_ms=kernel_ms(lambda: fb_c @ stft_lib(x, 2048, 512, win).abs() ** 2),
                     library="fb @ torch.stft().abs() ** 2",
@@ -2233,10 +2228,7 @@ def main() -> int:
                 # the signal out
                 ist_e = iSTFT(n_fft=1024, hop_length=256, verbose=False, device=dev)
                 w_e = ist_e.window_mask
-                fft_e = ist_e._synthesis_fft.bind(ist_e.kernel_cos, ist_e.kernel_sin, w_e)
-                hw = hermitian_weights(1024, 513, device=dev)[:, None]
-                kc_e = ist_e.kernel_cos[:513] * hw * w_e / 1024
-                ks_e = ist_e.kernel_sin[:513] * hw * w_e / 1024
+                kc_e, ks_e = fk.synthesis_kernels(ist_e.kernel_cos, ist_e.kernel_sin, w_e)
 
                 def irfft_lib(sre, sim, hop=256):
                     fr = torch.fft.irfft(torch.complex(sre, sim), 1024, dim=1) * w_e[:, None]
@@ -2247,9 +2239,10 @@ def main() -> int:
                                     ("synthesis_ola_fft stream", 128, 4)):
                     sre, sim = randn(b3, 513, t3), randn(b3, 513, t3)
                     args = (sre, sim, kc_e, ks_e, 256)
+                    dense = (sre, sim, kc_e.clone(), ks_e.clone(), 256)  # copies: no factors
                     rows[key] = dict(
-                        ms=kernel_ms(lambda: fk.synthesis_ola(*args, fft=fft_e)),
-                        dense_ms=kernel_ms(lambda: fk.synthesis_ola(*args)),
+                        ms=kernel_ms(lambda: fk.synthesis_ola(*args)),
+                        dense_ms=kernel_ms(lambda: fk.synthesis_ola(*dense)),
                         plain_ms=kernel_ms(lambda: fk.synthesis_ola_fft_plain(
                             sre, sim, w_e / 1024, 256)),
                         library_ms=kernel_ms(lambda: irfft_lib(sre, sim)),

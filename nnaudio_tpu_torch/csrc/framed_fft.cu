@@ -527,9 +527,9 @@ extern "C" int nnaudio_framed_filterbank_fft_twiddles(int n, int m) {
 //   K3  _synthesis_ola_kernel  :878  (launched by _synthesis_ola)
 // which computes OLA(kc^T Re - ks^T Im) as a dense product with the kernels,
 // as the port's dense K3 (synthesis_ola.cu, synthesis_tc_kernel) does. Where
-// the kernels are the Hermitian-weighted Fourier basis times w / N (the
-// transform's SynthesisFFTRoute checks its factors once, ops/framed_kernels.py
-// build_synthesis_fft_plan), this kernel computes
+// the kernels are the Hermitian-weighted Fourier basis times w / N (their
+// factors checked once, ops/framed_kernels.py build_synthesis_fft_plan),
+// this kernel computes
 //   y[b, t*hop + k] += w[k] / N * sum_f c_f (Re[b,f,t] cos(2 pi f k / N)
 //                                          - Im[b,f,t] sin(2 pi f k / N))
 // (c_f = 1 at DC and Nyquist, 2 between: an unnormalised inverse real FFT)

@@ -21,6 +21,7 @@ from torch import nn
 
 from .._spans import span
 from ..config import resolve_device
+from ..ops.framed_kernels import mark_own
 
 
 def to_float32(value, device) -> torch.Tensor:
@@ -69,13 +70,21 @@ class SpectralTransform(nn.Module):
             self.register_parameter(name, nn.Parameter(t))
         else:
             self.register_buffer(name, t)
-        return getattr(self, name)
+        t = getattr(self, name)
+        mark_own(t)
+        return t
 
-    def _holds(self, params: Mapping[str, torch.Tensor], *names: str) -> bool:
-        """Whether ``params`` gives this transform's own tensors under
-        ``names``, none passed in: only then may a route kept for them
-        (``framed_kernels.FFTRoute``, ``SynthesisFFTRoute``) serve the call."""
-        return all(params[k] is getattr(self, k) for k in names)
+    def _apply(self, fn, recurse=True):
+        """``nn.Module._apply`` (``.to()``, ``.cuda()``, ``.float()``): the
+        tensors put in place of this transform's own are its own, so a moved
+        transform keeps its FFT routes (``framed_kernels.mark_own``)."""
+        result = super()._apply(fn, recurse)
+        mark_own(*self.params.values())
+        return result
+
+    def __setstate__(self, state):  # a copy (``copy.deepcopy``, unpickling)
+        super().__setstate__(state)
+        mark_own(*self.params.values())
 
     def _hold(self, name: str, module: nn.Module) -> None:
         """Keep a helper transform without registering it as a submodule, so
@@ -125,6 +134,7 @@ class SpectralTransform(nn.Module):
         state = {k: v for k, v in state_dict.items()
                  if not self._derived_state_key(k)}
         result = super().load_state_dict(state, strict=strict, assign=assign)
+        mark_own(*self.params.values())  # assign=True puts the snapshot's tensors in place
         self._refresh_derived(set(state) & set(self.params))
         return result
 

@@ -90,6 +90,5 @@ class ChromaSTFT(SpectralTransform):
         chroma = self.stft._filterbank_spectrogram(
             params, broadcast_dim(x), params["chroma_basis"], self.power,
             eps=1e-8 if self.trainable_STFT else 0.0,
-            own_basis=params["chroma_basis"] is self.chroma_basis,
         )
         return normalize_frames(chroma, self.norm)

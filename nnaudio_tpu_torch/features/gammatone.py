@@ -73,7 +73,6 @@ class Gammatonegram(SpectralTransform):
         return self.stft._filterbank_spectrogram(
             params, broadcast_dim(x), params["gammatone_basis"], self.power,
             eps=1e-8 if self.trainable_STFT else 0.0,
-            own_basis=params["gammatone_basis"] is self.gammatone_basis,
         )
 
     def extra_repr(self) -> str:

@@ -29,9 +29,8 @@ from ..core.overlap import normalize_by_window_envelope, window_sumsquare
 from ..filters.fourier import create_fourier_basis
 from ..filters.windows import pad_center, window_dispatch
 from ..ops.dispatch import framed_basis_pair, gl_step, synthesis_ola
-from ..ops.framed_kernels import SynthesisFFTRoute, gl_update
+from ..ops.framed_kernels import gl_update, hermitian_weights, synthesis_kernels
 from .base import SpectralTransform, to_float32
-from .stft import hermitian_weights
 
 
 class Griffin_Lim(SpectralTransform):
@@ -94,13 +93,11 @@ class Griffin_Lim(SpectralTransform):
         self._register("kernel_sin_inv", basis.wsin * wt)
         self._register("kernel_cos_inv", basis.wcos * wt)
         self._register("window_mask", w)
-        # its own frozen synthesis factors: K3 may take its FFT route
-        self._synthesis_fft = SynthesisFFTRoute(weighted=True)
 
-    def _synthesize(self, spec_re, spec_im, kc, ks, w_sum, fft=None):
+    def _synthesize(self, spec_re, spec_im, kc, ks, w_sum):
         """Planar iSTFT: synthesis + overlap-add, envelope, center trim."""
         signal = normalize_by_window_envelope(
-            synthesis_ola(spec_re, spec_im, kc, ks, self.hop_length, fft=fft), w_sum)
+            synthesis_ola(spec_re, spec_im, kc, ks, self.hop_length), w_sum)
         if self.center:
             return signal[:, self.pad_amount:-self.pad_amount]
         return signal
@@ -130,11 +127,8 @@ class Griffin_Lim(SpectralTransform):
         carry = torch.bfloat16 if self.iter_precision == "default" else torch.float32
 
         w_sum = window_sumsquare(params["window_mask"], t, hop, self.n_fft)
-        w = params["window_mask"][None, :] / self.n_fft
-        kc, ks = params["kernel_cos_inv"] * w, params["kernel_sin_inv"] * w
-        factors = ("kernel_cos_inv", "kernel_sin_inv", "window_mask")
-        fft = (self._synthesis_fft.bind(*(params[k] for k in factors))
-               if self._holds(params, *factors) else None)
+        kc, ks = synthesis_kernels(params["kernel_cos_inv"], params["kernel_sin_inv"],
+                                   params["window_mask"], weighted=True)
         wcos, wsin = params["wcos"], params["wsin"]
         c_re = (S * torch.cos(2 * np.pi * rand_phase)).to(carry)
         c_im = (S * torch.sin(2 * np.pi * rand_phase)).to(carry)
@@ -145,7 +139,7 @@ class Griffin_Lim(SpectralTransform):
             set_matmul_precision("default")
         try:
             for _ in range(self.n_iter):
-                signal = self._synthesize(c_re, c_im, kc, ks, w_sum, fft)
+                signal = self._synthesize(c_re, c_im, kc, ks, w_sum)
                 if self.center:
                     signal = pad_signal(signal, self.pad_amount, self.pad_mode)
                 if fused:
@@ -157,7 +151,7 @@ class Griffin_Lim(SpectralTransform):
                                                        mom)
         finally:
             set_matmul_precision(prev)
-        return self._synthesize(c_re.float(), c_im.float(), kc, ks, w_sum, fft)
+        return self._synthesize(c_re.float(), c_im.float(), kc, ks, w_sum)
 
     def forward(self, S, rand_phase=None, generator=None):
         return self.apply(None, S, rand_phase=rand_phase, generator=generator)

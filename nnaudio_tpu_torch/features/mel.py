@@ -98,7 +98,6 @@ class MelSpectrogram(SpectralTransform):
         return self.stft._filterbank_spectrogram(
             params, broadcast_dim(x), params["mel_basis"], self.power,
             eps=1e-8 if self.trainable_STFT else 0.0,
-            own_basis=params["mel_basis"] is self.mel_basis,
         )
 
     def extra_repr(self) -> str:

@@ -32,19 +32,8 @@ from ..ops.dispatch import (
     framed_power,
     synthesis_ola,
 )
-from ..ops.framed_kernels import FFTRoute, SynthesisFFTRoute
+from ..ops.framed_kernels import hermitian_weights, synthesis_kernels  # noqa: F401
 from .base import SpectralTransform
-
-
-def hermitian_weights(n_fft: int, n_bins: int, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Per-bin fold weights for onesided synthesis: DC (and Nyquist when
-    ``n_fft`` is even) count once, interior bins twice, which replaces the
-    explicit ``extend_fbins`` mirror and halves the IDFT matmul."""
-    wt = torch.full((n_bins,), 2.0, dtype=dtype, device=device)
-    wt[0] = 1.0
-    if n_fft % 2 == 0:
-        wt[-1] = 1.0
-    return wt
 
 
 def _inverse_stft_graph(
@@ -59,7 +48,6 @@ def _inverse_stft_graph(
     center: bool,
     pad_amount: int,
     fold_onesided: bool = True,
-    route: SynthesisFFTRoute | None = None,
 ):
     """Shared iSTFT math (reference ``STFTBase.inverse_stft``).
 
@@ -68,26 +56,19 @@ def _inverse_stft_graph(
     With frozen kernels the onesided path folds Hermitian symmetry into bin
     weights instead of mirroring the spectrum (``fold_onesided=False`` keeps
     the explicit mirror, which a trainable full kernel bank needs so that its
-    upper-half rows receive gradients). ``route``: the caller's K3 FFT route
-    (``weighted=False``), where the kernels and window are the tensors it
-    holds; the folded path hands it to the synthesis.
+    upper-half rows receive gradients). The window and 1/n_fft are
+    per-output-sample scales, folded into the kernel columns so that
+    synthesis + overlap-add runs as one op; the folded products
+    (``synthesis_kernels``) may take K3's FFT route.
     """
-    fft = None
     if onesided and fold_onesided and X.shape[1] == n_fft // 2 + 1:
-        wt = hermitian_weights(n_fft, X.shape[1], X.dtype, X.device)
-        kc = kernel_cos[: X.shape[1]] * wt[:, None]
-        ks = kernel_sin[: X.shape[1]] * wt[:, None]
-        if route is not None:
-            fft = route.bind(kernel_cos, kernel_sin, window_mask)
+        kc, ks = synthesis_kernels(kernel_cos, kernel_sin, window_mask)
     else:
         if onesided:
             X = extend_fbins(X)
-        kc, ks = kernel_cos, kernel_sin
-    # window and 1/n_fft are per-output-sample scales: fold them into the
-    # kernel columns so synthesis + overlap-add runs as one op
-    kc = kc * window_mask[None, :] / n_fft
-    ks = ks * window_mask[None, :] / n_fft
-    signal = synthesis_ola(X[..., 0], X[..., 1], kc, ks, hop, fft=fft)
+        kc = kernel_cos * window_mask[None, :] / n_fft
+        ks = kernel_sin * window_mask[None, :] / n_fft
+    signal = synthesis_ola(X[..., 0], X[..., 1], kc, ks, hop)
     w_sum = window_sumsquare(window_mask, X.shape[2], hop, n_fft)
     signal = normalize_by_window_envelope(signal, w_sum)
     if length is None:
@@ -172,8 +153,6 @@ class STFT(SpectralTransform):
         self.trainable = trainable
         self.output_format = output_format
         self.iSTFT = iSTFT
-        self._fft_route = FFTRoute()
-        self._synthesis_fft = SynthesisFFTRoute(weighted=False)
 
         basis = create_fourier_basis(
             n_fft,
@@ -246,21 +225,15 @@ class STFT(SpectralTransform):
             return mag
         return mag ** power
 
-    def _filterbank_spectrogram(self, params, x, basis, power: float, eps: float,
-                                own_basis: bool = False):
+    def _filterbank_spectrogram(self, params, x, basis, power: float, eps: float):
         """Shared composite forward of Mel-type transforms: at ``power=2`` the
         frame + DFT pair + power + filterbank projection is one op (the K2
         kernel for CUDA tensors); other powers take ``|STFT|^p`` then
         project. A trainable STFT passes ``eps=1e-8``, the reference's
-        under-the-sqrt epsilon, an additive power offset at p=2.
-        ``own_basis``: ``basis`` is the caller's own filterbank, so that
-        where ``params`` holds this frozen STFT's own bases too, K2 may take
-        its FFT route (``framed_kernels.FFTRoute``, kept here)."""
+        under-the-sqrt epsilon, an additive power offset at p=2."""
         if power == 2.0:
-            own = own_basis and not self.trainable and self._holds(params, "wcos", "wsin")
             return framed_filterbank(self._padded(x), params["wcos"],
-                                     params["wsin"], basis, self.stride, eps=eps,
-                                     fft=self._fft_route if own else None)
+                                     params["wsin"], basis, self.stride, eps=eps)
         return project(basis, self._power_spectrogram(params, x, power))
 
     def forward(self, x, output_format=None):
@@ -285,7 +258,7 @@ class STFT(SpectralTransform):
         return _inverse_stft_graph(
             X, params["kernel_cos_inv"], params["kernel_sin_inv"],
             params["window_mask"], self.n_fft, self.stride, onesided, length,
-            self.center, self.pad_amount, route=self._synthesis_fft,
+            self.center, self.pad_amount,
         )
 
     def extra_repr(self) -> str:
@@ -357,14 +330,10 @@ class iSTFT(SpectralTransform):
         self._register("kernel_cos", basis.wcos, trainable=trainable_kernels)
         self._register("window_mask", window_mask, trainable=trainable_window)
         self.trainable_kernels = trainable_kernels
-        # its own synthesis factors: K3 may take its FFT route where they are
-        # frozen
-        self._synthesis_fft = SynthesisFFTRoute(weighted=False)
         self._verbose_print(verbose, f"iSTFT kernels created: n_fft={n_fft}")
 
     def _forward(self, params, X, onesided=False, length=None):
         _check_complex(X)
-        own = self._holds(params, "kernel_cos", "kernel_sin", "window_mask")
         return _inverse_stft_graph(
             X,
             params["kernel_cos"],
@@ -379,7 +348,6 @@ class iSTFT(SpectralTransform):
             # trainable full banks keep the explicit mirror so the upper-half
             # kernel rows receive gradients
             fold_onesided=not self.trainable_kernels,
-            route=self._synthesis_fft if own else None,
         )
 
     def forward(self, X, onesided=False, length=None, refresh_win=None):

@@ -11,15 +11,15 @@ in which case it takes the plain version on every device:
 - ``framed_magnitude``, ``framed_power``: K6, the split-K form of K1, for a
   bank of at most 128 bins and at least :data:`KCHUNK_MIN_N` samples (the CQT
   family's wavelet banks), else K1; ``framed_filterbank``: K2;
-- ``synthesis_ola``: K3 (its FFT route where the caller hands over its
-  ``SynthesisFFTRoute``);
+- ``synthesis_ola``: K3;
 - ``gl_step``: K4, one Griffin-Lim analysis step.
 
 Under autograd (grad enabled and an operand that requires grad) the
 magnitude, power and filterbank wrappers take the pair (K5) and compute their
 epilogue in PyTorch, as the JAX package's differentiated forwards do; the
 route is decided in :mod:`.framed_kernels`, so no caller records a K1, K2 or
-K6 forward.
+K6 forward. K2's and K3's FFT routes are chosen there too, from the
+operands (``framed_kernels.fft_plan``, ``synthesis_fft_plan``).
 
 K1, K2, K4 and K5 are one tensor-core kernel (``csrc/framed_tc.cu``) with
 four epilogues; K3 and K6 have sources of their own.
@@ -118,22 +118,21 @@ def framed_power(x, wcos, wsin, hop):
     return _magnitude(x, wcos, wsin, hop, 0.0, True)
 
 
-def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0, fft=None):
+def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0):
     """``fb @ (|STFT|^2 + eps)`` -> (B, n_mels, T); the (B, F, T) power never
-    reaches device memory on the kernel path. ``fft``: the caller's
-    ``framed_kernels.FFTRoute``, where the operands are the tensors it holds."""
+    reaches device memory on the kernel path."""
     if _analysis_on():
-        return fk.framed_filterbank(x, wcos, wsin, fb, hop, eps=eps, fft=fft)
+        return fk.framed_filterbank(x, wcos, wsin, fb, hop, eps=eps)
     return fk.framed_filterbank_plain(x, wcos, wsin, fb, hop, eps=eps)
 
 
-def synthesis_ola(spec_re, spec_im, kc, ks, hop, fft=None):
+def synthesis_ola(spec_re, spec_im, kc, ks, hop):
     """iSTFT synthesis: (B, F, T) spectra x (F, n_fft) fully weighted kernels
-    -> (B, n_fft + hop*(T-1)) overlap-added signal, ``OLA(kc^T Re - ks^T Im)``.
-    ``fft``: the caller's ``framed_kernels.SynthesisFFTRoute`` bound to the
-    factors it holds, where ``kc`` and ``ks`` are made of them."""
+    -> (B, n_fft + hop*(T-1)) overlap-added signal, ``OLA(kc^T Re - ks^T Im)``;
+    ``framed_kernels.synthesis_kernels`` makes the kernels of a Fourier
+    basis."""
     if _synthesis_on():
-        return fk.synthesis_ola(spec_re, spec_im, kc, ks, hop, fft=fft)
+        return fk.synthesis_ola(spec_re, spec_im, kc, ks, hop)
     return fk.synthesis_ola_plain(spec_re, spec_im, kc, ks, hop)
 
 

@@ -18,18 +18,19 @@ each group of :data:`KCHUNK_GROUP` bins multiplied only over the columns
 where its rows are nonzero (:func:`kchunk_ranges`), found on the device at
 every call.
 
-K2 has a second route: a transform's own frozen Fourier basis in fp32
-storage (the pair is the windowed DFT of ``wcos[0]``, recognised once per
-basis by the transform's :class:`FFTRoute`) takes ``framed_fft.cu``, a real FFT of each frame on the
-CUDA cores, its power and the filterbank's bands of nonzero columns
-(:func:`framed_filterbank_fft_plain` repeats its arithmetic); every other
-basis takes the tensor-core K2. K3 has the same second route: where a
-transform's own synthesis factors are the Hermitian-weighted Fourier basis
-(recognised once per basis by its :class:`SynthesisFFTRoute`), fp32 spectra
-take ``framed_fft.cu``'s inverse real FFT of each frame and its overlap-add
-(:func:`synthesis_ola_fft_plain`), read where they lie; every other synthesis
-(the inverse CQT's dual atoms, K5's backward, trainable bases) takes the
-tensor-core K3.
+K2 and K3 have a second route each, chosen here from the operands (no
+caller hands one over): where the operands are a transform's own tensors
+(:func:`mark_own`), frozen, in fp32 storage, and make a Fourier basis, the
+route's plan (recognised once per set of tensors, :func:`fft_plan`,
+:func:`synthesis_fft_plan`) sends the call to ``framed_fft.cu``. K2's is a
+real FFT of each frame on the CUDA cores, its power and the filterbank's
+bands of nonzero columns (:func:`framed_filterbank_fft_plain` repeats its
+arithmetic), for the windowed DFT of ``wcos[0]``; K3's, for synthesis
+products that :func:`synthesis_kernels` made of the Hermitian-weighted
+Fourier basis, an inverse real FFT of each frame of the fp32 spectra, read
+where they lie, and its overlap-add (:func:`synthesis_ola_fft_plain`). Every
+other call (a tensor passed in, a trainable basis, the inverse CQT's dual
+atoms, K5's backward) takes the tensor-core K2 or K3.
 
 K1, K2, K4 and K5 are one tensor-core kernel (``wgmma``) with four
 epilogues. In fp32 storage it takes three TF32 products of operands split as
@@ -66,7 +67,7 @@ gradient. On the CPU the plain versions differentiate through autograd.
 from __future__ import annotations
 
 import ctypes
-import functools
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -1036,49 +1037,6 @@ def build_fft_plan(wcos, wsin, fb) -> FFTPlan | None:
                    vals=_band_values(fb, lo, off, length, nnz), m=fb.shape[0])
 
 
-class _StampedRoute:
-    """An FFT route's plan as one transform holds it for three of its own
-    tensors: built at the route's first call (one comparison in float64, one
-    synchronisation) and again only after one of the three was replaced or
-    changed in place (its version, which ``update_params``,
-    ``load_state_dict`` and in-place ops bump); after that a call compares
-    three tensors and their versions. A write through ``.data`` bumps no
-    version: make it with an in-place op under ``torch.no_grad()``."""
-
-    def __init__(self) -> None:
-        self._ops: tuple = ()
-        self._stamp: tuple = ()
-        self._plan = None
-
-    def _kept(self, build, a, b, c, *args):
-        """The plan ``build(a, b, c, *args)`` made for these tensors as they
-        are now, kept from an earlier call where they are unchanged."""
-        stamp = (a._version, b._version, c._version, a.data_ptr(), b.data_ptr(), c.data_ptr())
-        ops = self._ops
-        if not (ops and ops[0] is a and ops[1] is b and ops[2] is c and stamp == self._stamp):
-            self._plan = build(a, b, c, *args)
-            self._ops, self._stamp = (a, b, c), stamp
-        return self._plan
-
-
-class FFTRoute(_StampedRoute):
-    """K2's FFT route as one transform holds it for its own bases and
-    filterbank. The transform hands it to :func:`framed_filterbank` only
-    where the call's ``wcos``, ``wsin`` and ``fb`` are the tensors it holds,
-    so a basis passed in (a ``params`` override, the new parameters of a
-    training step) takes dense K2 unchecked. The plan
-    (:func:`build_fft_plan`: the basis's check, the band packing) is kept as
-    :class:`_StampedRoute` keeps it."""
-
-    def plan(self, wcos, wsin, fb) -> FFTPlan | None:
-        """The plan for these operands, or None, which leaves them to dense
-        K2. A basis that requires grad, and bf16 storage, take dense K2
-        unchecked."""
-        if storage_dtype() != torch.float32 or wcos.requires_grad or wsin.requires_grad:
-            return None
-        return self._kept(build_fft_plan, wcos, wsin, fb)
-
-
 class SynthesisFFTPlan(NamedTuple):
     """What K3's FFT route reads besides the spectra, made once per basis:
     the window over N (N,), the twiddle table (:func:`fft_twiddles`) and the
@@ -1129,36 +1087,115 @@ def build_synthesis_fft_plan(kernel_cos, kernel_sin, window, weighted) -> Synthe
                             edge=synthesis_edge(n, dev))
 
 
-class SynthesisFFTRoute(_StampedRoute):
-    """K3's FFT route as one transform holds it for its own synthesis
-    factors: the kernels ``kernel_cos`` and ``kernel_sin`` and the window.
-    ``weighted``: the kernels' rows carry the Hermitian fold weights
-    (``Griffin_Lim``'s ``kernel_*_inv``), else the call multiplies them in
-    (``iSTFT``'s ``kernel_cos`` / ``kernel_sin``). The plan
-    (:func:`build_synthesis_fft_plan`) is keyed to these factors, never to
-    the products ``kc = kernel * window / N`` that a call makes, and kept as
-    :class:`_StampedRoute` keeps it. The transform hands :meth:`bind`'s
-    result to :func:`synthesis_ola` only where the call's factors are the
-    tensors it holds, so a basis passed in takes dense K3 unchecked."""
+# ------------------------------------------------------------ the routes --
+class _Own:
+    """The mark of a transform's own tensor (:func:`mark_own`): the FFT plans
+    kept on it, by the function that makes them, each with the stamp of the
+    operands it was made for; and the weak reference that drops the mark
+    with its tensor."""
+    __slots__ = ("plans", "ref")
 
-    def __init__(self, weighted: bool) -> None:
-        super().__init__()
-        self.weighted = weighted
 
-    def plan(self, kernel_cos, kernel_sin, window) -> SynthesisFFTPlan | None:
-        """The plan for these factors, or None, which leaves the synthesis to
-        dense K3. Factors that require grad, and bf16 storage, take dense K3
-        unchecked."""
-        if (storage_dtype() != torch.float32 or kernel_cos.requires_grad
-                or kernel_sin.requires_grad or window.requires_grad):
-            return None
-        return self._kept(build_synthesis_fft_plan, kernel_cos, kernel_sin, window,
-                          self.weighted)
+#: the marks of the tensors :func:`mark_own` marked, by ``id``. A mark goes
+#: when its tensor does, so an ``id`` never names another tensor; the tensor
+#: itself carries nothing (it pickles, and loads with ``weights_only``, as
+#: any tensor does).
+_OWN: dict[int, _Own] = {}
 
-    def bind(self, kernel_cos, kernel_sin, window):
-        """The ``fft`` argument of :func:`synthesis_ola` for these factors:
-        a call that gives their plan (or None)."""
-        return functools.partial(self.plan, kernel_cos, kernel_sin, window)
+
+def mark_own(*tensors) -> None:
+    """Mark tensors as a transform's own: ``SpectralTransform`` marks each
+    tensor it registers, and again those that ``.to()``, a load with
+    ``assign=True`` or a copy of the transform puts in their place; a stream
+    marks the filterbank it keeps. Only such operands are looked at for an
+    FFT route, so a tensor passed in (a ``params`` override, a train step's
+    new parameters, a clone) takes the dense kernel unchecked. A marked
+    tensor keeps its mark and its plans."""
+    for t in tensors:
+        key = id(t)
+        if key not in _OWN:
+            own = _OWN[key] = _Own()
+            own.plans = {}
+            own.ref = weakref.ref(t, lambda _, key=key: _OWN.pop(key, None))
+
+
+def _kept(build, a, b, c, *args):
+    """``build(a, b, c, *args)`` for three marked operands as they are now,
+    kept on ``a``'s mark: made at the first call (one comparison in float64,
+    one synchronisation) and again only after an operand was replaced or
+    changed in place (its version, which ``update_params``,
+    ``load_state_dict`` and in-place ops bump; a write through ``.data``
+    bumps none: make it in place under ``torch.no_grad()``). The plan holds
+    none of the operands. None where an operand is not marked."""
+    own, mb, mc = _OWN.get(id(a)), _OWN.get(id(b)), _OWN.get(id(c))
+    if own is None or mb is None or mc is None:
+        return None
+    stamp = (mb, mc, a._version, b._version, c._version,
+             a.data_ptr(), b.data_ptr(), c.data_ptr(), *args)
+    kept = own.plans.get(build)
+    if kept is None or kept[0] != stamp:
+        kept = own.plans[build] = (stamp, build(a, b, c, *args))
+    return kept[1]
+
+
+def fft_plan(wcos, wsin, fb) -> FFTPlan | None:
+    """K2's FFT route for these operands: their plan (:func:`build_fft_plan`,
+    kept as :func:`_kept` keeps it), or None, which leaves them to dense K2.
+    Operands not all marked (:func:`mark_own`), a basis that requires grad,
+    and bf16 storage take dense K2 unchecked."""
+    if storage_dtype() != torch.float32 or wcos.requires_grad or wsin.requires_grad:
+        return None
+    return _kept(build_fft_plan, wcos, wsin, fb)
+
+
+def hermitian_weights(n_fft: int, n_bins: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Per-bin fold weights for onesided synthesis: DC (and Nyquist when
+    ``n_fft`` is even) count once, interior bins twice, which replaces the
+    explicit ``extend_fbins`` mirror and halves the IDFT matmul."""
+    wt = torch.full((n_bins,), 2.0, dtype=dtype, device=device)
+    wt[0] = 1.0
+    if n_fft % 2 == 0:
+        wt[-1] = 1.0
+    return wt
+
+
+def synthesis_kernels(kernel_cos, kernel_sin, window, weighted=False):
+    """K3's onesided synthesis products ``(kc, ks)``, F = N/2 + 1 rows of N:
+    the kernels' first F rows times the Hermitian fold weights
+    (:func:`hermitian_weights`), times the window, over N. ``weighted``: the
+    kernels are onesided and carry the weights already (``Griffin_Lim``'s
+    ``kernel_*_inv``), and the window is divided by N first. Both products
+    record their factors, so that :func:`synthesis_ola` finds the factors'
+    FFT route (:func:`synthesis_fft_plan`) by itself."""
+    n = kernel_cos.shape[-1]
+    if weighted:
+        w = window[None, :] / n
+        kc, ks = kernel_cos * w, kernel_sin * w
+    else:
+        f = n // 2 + 1
+        wt = hermitian_weights(n, f, kernel_cos.dtype, kernel_cos.device)[:, None]
+        kc = kernel_cos[:f] * wt * window[None, :] / n
+        ks = kernel_sin[:f] * wt * window[None, :] / n
+    kc._nnaudio_factors = ks._nnaudio_factors = (kernel_cos, kernel_sin, window, weighted)
+    return kc, ks
+
+
+def synthesis_fft_plan(kc, ks) -> SynthesisFFTPlan | None:
+    """K3's FFT route for the products ``kc`` and ``ks``: the plan of the
+    factors that :func:`synthesis_kernels` recorded on both
+    (:func:`build_synthesis_fft_plan`, kept on the factors as :func:`_kept`
+    keeps it, never on the products), or None, which leaves the synthesis to
+    dense K3. Products made otherwise, factors not all marked
+    (:func:`mark_own`), factors that require grad, and bf16 storage take
+    dense K3 unchecked."""
+    factors = getattr(kc, "_nnaudio_factors", None)
+    if (factors is None or getattr(ks, "_nnaudio_factors", None) is not factors
+            or storage_dtype() != torch.float32):
+        return None
+    kernel_cos, kernel_sin, window, weighted = factors
+    if kernel_cos.requires_grad or kernel_sin.requires_grad or window.requires_grad:
+        return None
+    return _kept(build_synthesis_fft_plan, kernel_cos, kernel_sin, window, weighted)
 
 
 def _launch_filterbank_fft(x, wcos, wsin, fb, hop, eps, plan):
@@ -1293,11 +1330,11 @@ def _launch_synthesis_fft(spec_re, spec_im, hop, plan):
 
 class _SynthesisOLA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, spec_re, spec_im, kc, ks, hop, fft):
+    def forward(ctx, spec_re, spec_im, kc, ks, hop):
         ctx.save_for_backward(spec_re, spec_im, kc, ks)
         ctx.hop = hop
         with span("nnaudio.wrap.K3"):
-            plan = fft() if fft is not None else None
+            plan = synthesis_fft_plan(kc, ks)
             if plan is not None and hop <= plan.scale.shape[0]:
                 note_route("K3.fft")
                 return _launch_synthesis_fft(spec_re, spec_im, hop, plan)
@@ -1307,7 +1344,7 @@ class _SynthesisOLA(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return (*synthesis_ola_backward(*ctx.saved_tensors, g, ctx.hop,
-                                        ctx.needs_input_grad[:4]), None, None)
+                                        ctx.needs_input_grad[:4]), None)
 
 
 class _Pair(torch.autograd.Function):
@@ -1375,20 +1412,19 @@ def framed_magnitude_kchunk(x, wcos, wsin, hop, eps=0.0, square=False,
     return _launch_magnitude_kchunk(x, wcos, wsin, hop, eps, square, splits)
 
 
-def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0, fft=None):
+def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0):
     """K2: fb @ (|STFT|^2 + eps) -> (B, M, T) float32. A differentiated call
     takes the pair (K5), then the power and the projection in PyTorch, whose
     autograd gives the JAX package's ``_fb_bwd`` (``d_fb`` included). Else
-    the FFT route (``csrc/framed_fft.cu``) where the caller passes its
-    :class:`FFTRoute` ``fft`` for the tensors it holds and that route has a
-    plan for them, and the dense tensor-core K2 for every other basis."""
+    the FFT route (``csrc/framed_fft.cu``) where :func:`fft_plan` has a plan
+    for the operands, and the dense tensor-core K2 for every other basis."""
     if not _on_card(x):
         return framed_filterbank_plain(x, wcos, wsin, fb, hop, eps=eps)
     if _differentiated(x, wcos, wsin, fb):
         return project(fb, pair_magnitude(*framed_pair(x, wcos, wsin, hop),
                                           eps, square=True))
     with span("nnaudio.wrap.K2"):
-        plan = fft.plan(wcos, wsin, fb) if fft is not None else None
+        plan = fft_plan(wcos, wsin, fb)
         if plan is not None:
             note_route("K2.fft")
             return _launch_filterbank_fft(x, wcos, wsin, fb, hop, eps, plan)
@@ -1396,16 +1432,15 @@ def framed_filterbank(x, wcos, wsin, fb, hop, eps=0.0, fft=None):
         return _launch_filterbank(x, wcos, wsin, fb, hop, eps)
 
 
-def synthesis_ola(spec_re, spec_im, kc, ks, hop, fft=None):
+def synthesis_ola(spec_re, spec_im, kc, ks, hop):
     """K3: OLA(kc^T Re - ks^T Im) -> (B, N + hop*(T-1)) float32. The FFT
-    route (``csrc/framed_fft.cu``) where the caller passes ``fft``, its
-    :class:`SynthesisFFTRoute`'s :meth:`~SynthesisFFTRoute.bind` for the
-    factors that ``kc`` and ``ks`` are made of, and that route has a plan
-    for them (and ``hop <= N``); the dense tensor-core K3 for every other
-    synthesis. The backward is dense K3's on either route."""
+    route (``csrc/framed_fft.cu``) where :func:`synthesis_fft_plan` has a
+    plan for the factors that ``kc`` and ``ks`` were made of (and ``hop <=
+    N``); the dense tensor-core K3 for every other synthesis. The backward
+    is dense K3's on either route."""
     if not _on_card(spec_re):
         return synthesis_ola_plain(spec_re, spec_im, kc, ks, hop)
-    return _SynthesisOLA.apply(spec_re, spec_im, kc, ks, hop, fft)
+    return _SynthesisOLA.apply(spec_re, spec_im, kc, ks, hop)
 
 
 def framed_pair(x, wcos, wsin, hop):

@@ -47,10 +47,10 @@ from ._spans import span
 from .core.apply import project
 from .core.overlap import normalize_by_window_envelope, window_sumsquare
 from .features.base import to_float32
-from .features.stft import STFT, hermitian_weights, iSTFT
+from .features.stft import STFT, iSTFT
 from .ops.dispatch import (force_fuse, framed_basis_pair, framed_filterbank,
                            framed_magnitude, synthesis_ola)
-from .ops.framed_kernels import FFTRoute, SynthesisFFTRoute
+from .ops.framed_kernels import mark_own, synthesis_kernels
 
 __all__ = [
     "StreamState",
@@ -298,15 +298,13 @@ class _StreamingFilterbank(_StreamingFramed):
                           verbose=verbose, device=device)
         params = self._stft.params
         params["basis"] = to_float32(basis, self._stft.device)
+        mark_own(params["basis"])  # its own, as the STFT's bases are
         self._init_stream(n_fft, hop_length, params, self._stft.device, fuse=fuse)
-        # its own frozen bases and filterbank: K2 may take its FFT route
-        self._fft_route = FFTRoute()
 
     def _project(self, params, sig):
         if self.power == 2.0:
             return framed_filterbank(sig, params["wcos"], params["wsin"],
-                                     params["basis"], self.hop, eps=0.0,
-                                     fft=self._fft_route)
+                                     params["basis"], self.hop, eps=0.0)
         mag = framed_magnitude(sig, params["wcos"], params["wsin"], self.hop, eps=0.0)
         return project(params["basis"], mag ** self.power)
 
@@ -466,17 +464,11 @@ class StreamingiSTFT:
             raise ValueError("hop_length > n_fft has gaps; cannot stream")
         self.padding = padding
         self.trim = (n_fft - self.hop) // 2 if padding == "same" else 0
-        f = n_fft // 2 + 1
         with torch.no_grad():
-            wt = hermitian_weights(n_fft, f, device=self.device)
-            w = self._ist.window_mask
             # onesided Hermitian-folded, fully weighted synthesis kernels
-            self._kc = self._ist.kernel_cos[:f] * wt[:, None] * w[None, :] / n_fft
-            self._ks = self._ist.kernel_sin[:f] * wt[:, None] * w[None, :] / n_fft
-            self._window = w.clone()
-        # the factors of those kernels: K3 may take its FFT route
-        self._fft = SynthesisFFTRoute(weighted=False).bind(
-            self._ist.kernel_cos, self._ist.kernel_sin, self._ist.window_mask)
+            self._kc, self._ks = synthesis_kernels(
+                self._ist.kernel_cos, self._ist.kernel_sin, self._ist.window_mask)
+            self._window = self._ist.window_mask.clone()
 
     @property
     def overlap(self) -> int:
@@ -501,8 +493,7 @@ class StreamingiSTFT:
             tail, env_tail, *trim = state
             hop, overlap, emit = self.hop, self.overlap, t * self.hop
             with force_fuse(self.fuse):
-                sig = synthesis_ola(X[..., 0], X[..., 1], self._kc, self._ks, hop,
-                                    fft=self._fft)
+                sig = synthesis_ola(X[..., 0], X[..., 1], self._kc, self._ks, hop)
             with span("nnaudio.stream.envelope"):
                 env = window_sumsquare(self._window, t, hop, self.n_fft)
             with span("nnaudio.stream.carry"):

@@ -19,8 +19,10 @@ span                            where
 ``.forward``, ``.backward``,
 ``.update``
 ``nnaudio.K5.backward``         the pair's backward (dW products, dx)
-``nnaudio.route.K2.fft``,       not a span: the count of K2's dispatches by
-``.dense``                      route (``ops.framed_kernels.framed_filterbank``)
+``nnaudio.route.K2.fft``,       not a span: the count of K2's and K3's
+``.dense``, ``K3.fft``,         dispatches by route, chosen from the operands
+``K3.dense``                    (``ops.framed_kernels.fft_plan``,
+                                ``synthesis_fft_plan``)
 ==============================  =============================================
 
 Each row counts the spans, their host time and self time (less their child

@@ -1,5 +1,6 @@
 """The port's STFT, iSTFT, MelSpectrogram and MFCC against the JAX package's
-on the same numpy inputs, on the CPU."""
+on the same numpy inputs, on the CPU; and the FFT routes of transforms whose
+tensors were moved."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -9,6 +10,7 @@ from nnaudio_tpu import features as jf
 from nnaudio_tpu_torch import features as tf
 from nnaudio_tpu_torch import fast_mode
 from nnaudio_tpu_torch.interop import load_jax_state, params_from_jax
+from test_torch_training import kernel_route  # noqa: F401  (a fixture: launches counted)
 
 TOL = 1e-4   # framed ops (tests/test_ops.py)
 RT_TOL = 1e-3  # round trips
@@ -164,3 +166,39 @@ def test_perturbed_jax_state_reproduces_jax_output():
     _close(fresh.apply(params_from_jax(state, "cpu"), x), want)
     with pytest.raises(RuntimeError):
         load_jax_state(tm, {k: v for k, v in state.items() if k != "wsin"})
+
+
+MOVED_KW = dict(sr=8000, n_fft=256, hop_length=64, verbose=False, device="cpu")
+
+
+@pytest.mark.parametrize("name,launches", [
+    ("MelSpectrogram", {"framed_filterbank_fft": 1}),
+    ("MFCC", {"framed_filterbank_fft": 1}),
+    ("Gammatonegram", {"framed_filterbank_fft": 1}),
+    ("ChromaSTFT", {"framed_filterbank_fft": 1}),
+    ("InverseMelSpectrogram", {"synthesis_ola_fft": 3, "framed_pair": 2}),
+])
+def test_a_moved_transform_keeps_its_fft_route(kernel_route, name, launches):
+    """``Module.to(device)`` puts a new tensor in place of each of a
+    transform's own (``m._apply(lambda t: t.clone())`` does what ``.to``
+    does to each one). The transforms that keep an inner one apart from
+    their state (an STFT, a Griffin-Lim) read the new tensors, which are
+    still their own: K2's and K3's FFT routes stay, on the same values."""
+    if name == "InverseMelSpectrogram":
+        layer = tf.InverseMelSpectrogram(n_mels=16, n_iter=2, n_iter_nnls=4,
+                                         iter_precision="highest", **MOVED_KW)
+        x = torch.rand(2, 16, 12, generator=torch.Generator().manual_seed(8))
+        kw = dict(rand_phase=torch.rand(2, 129, 12, generator=torch.Generator().manual_seed(9)))
+    else:
+        layer = getattr(tf, name)(**MOVED_KW)
+        x, kw = torch.from_numpy(_signal(seconds=0.25)), {}
+    with torch.no_grad():
+        want = layer(x, **kw)
+        old = {k: v.data_ptr() for k, v in layer.params.items()}
+        layer._apply(lambda t: t.clone())
+        assert all(v.data_ptr() != old[k] for k, v in layer.params.items())
+        for k in kernel_route:
+            kernel_route[k] = 0
+        got = layer(x, **kw)
+    assert kernel_route == {k: launches.get(k, 0) for k in kernel_route}
+    assert torch.equal(got, want)

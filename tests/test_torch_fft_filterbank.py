@@ -92,11 +92,13 @@ def test_other_bases_are_not_recognised(case):
 def test_a_basis_that_requires_grad_or_bf16_storage_is_never_checked(plan_builds):
     wc, ws = _bases(512)
     fb = _mel(512, 40)
-    route = fk.FFTRoute()
-    assert route.plan(wc.clone().requires_grad_(), ws, fb) is None
-    assert route.plan(wc, ws.clone().requires_grad_(), fb) is None
+    fk.mark_own(fb)
+    gc, gs = wc.clone().requires_grad_(), ws.clone().requires_grad_()
+    fk.mark_own(gc, gs)  # marked, so that only the grad keeps them from the check
+    assert fk.fft_plan(gc, ws, fb) is None
+    assert fk.fft_plan(wc, gs, fb) is None
     with config.fast_mode():
-        assert route.plan(wc, ws, fb) is None
+        assert fk.fft_plan(wc, ws, fb) is None
     assert plan_builds == []
 
 
@@ -104,32 +106,50 @@ def test_the_verdict_is_kept_until_an_operand_changes(plan_builds):
     mel = features.MelSpectrogram(n_fft=512, hop_length=128, n_mels=40, verbose=False,
                                   device="cpu")
     ops = mel.wcos, mel.wsin, mel.mel_basis
-    route = fk.FFTRoute()
-    first = route.plan(*ops)
-    assert first is not None and route.plan(*ops) is first and len(plan_builds) == 1
+    first = fk.fft_plan(*ops)
+    assert first is not None and fk.fft_plan(*ops) is first and len(plan_builds) == 1
     with torch.no_grad():
         mel.wcos[3, 7] += 0.5  # an in-place edit: checked again, and refused
-    assert route.plan(*ops) is None and len(plan_builds) == 2
-    assert route.plan(*ops) is None and len(plan_builds) == 2
+    assert fk.fft_plan(*ops) is None and len(plan_builds) == 2
+    assert fk.fft_plan(*ops) is None and len(plan_builds) == 2
     fresh = features.MelSpectrogram(n_fft=512, hop_length=128, n_mels=40, verbose=False,
                                     device="cpu")
     mel.load_state_dict(fresh.state_dict())  # the Fourier basis again
-    again = route.plan(*ops)
+    again = fk.fft_plan(*ops)
     assert again is not None and again is not first and len(plan_builds) == 3
     # a scaled window is a window; a scaled sine alone is not its Fourier basis
     mel.load_state_dict({k: v * 1.5 for k, v in fresh.state_dict().items()})
-    assert route.plan(*ops) is not None and len(plan_builds) == 4
+    assert fk.fft_plan(*ops) is not None and len(plan_builds) == 4
     mel.load_state_dict({k: v * 1.5 if k == "wsin" else v
                          for k, v in fresh.state_dict().items()})
-    assert route.plan(*ops) is None and len(plan_builds) == 5
+    assert fk.fft_plan(*ops) is None and len(plan_builds) == 5
     with torch.no_grad():
         mel.mel_basis.mul_(2.0)  # a filterbank step packs the bands again
     mel.load_state_dict(fresh.state_dict())
-    assert torch.equal(route.plan(*ops).vals, fk.filterbank_bands(mel.mel_basis)[2])
+    assert torch.equal(fk.fft_plan(*ops).vals, fk.filterbank_bands(mel.mel_basis)[2])
     other = features.MelSpectrogram(n_fft=512, hop_length=128, n_mels=40, verbose=False,
                                     device="cpu")  # other tensors: built anew
-    assert route.plan(other.wcos, other.wsin, other.mel_basis) is not None
+    assert fk.fft_plan(other.wcos, other.wsin, other.mel_basis) is not None
     assert len(plan_builds) == 7
+
+
+def test_an_stft_loaded_by_assignment_keeps_k2s_route(plan_builds):
+    """``load_state_dict(assign=True)`` puts the snapshot's tensors in place
+    of the STFT's own: they are its own now, and K2 takes its FFT route."""
+    mel = features.MelSpectrogram(n_fft=512, hop_length=128, n_mels=40, verbose=False,
+                                  device="cpu")
+    stft = mel.stft
+    fresh = features.STFT(n_fft=512, hop_length=128, output_format="Magnitude",
+                          verbose=False, device="cpu")
+    stft.load_state_dict(fresh.state_dict(), assign=True)
+    assert stft.wcos is not fresh.wcos and stft.wcos.data_ptr() == fresh.wcos.data_ptr()
+    x = torch.from_numpy(np.random.RandomState(6).randn(2, 4096).astype(np.float32))
+    with _kernel_route() as calls, torch.no_grad():
+        got = fk.framed_filterbank(x, stft.wcos, stft.wsin, mel.mel_basis, 128)
+    assert calls == {"framed_filterbank": 0, "framed_filterbank_fft": 1}
+    assert len(plan_builds) == 1
+    want = fk.framed_filterbank_plain(x, stft.wcos, stft.wsin, mel.mel_basis, 128)
+    assert _rel(got, want) <= 1e-5
 
 
 # ------------------------------------------------------------------- bands --
@@ -267,6 +287,27 @@ def test_each_basis_takes_its_route(case, route):
     assert _rel(got, want) <= 1e-5
 
 
+def test_a_copy_keeps_the_route_and_the_tensors_stay_plain(tmp_path):
+    """A copy of a transform (``copy.deepcopy``, unpickling) marks the
+    copies of its tensors as its own, so it keeps K2's route; the mark is
+    kept beside the tensors, not on them, so a transform's ``params`` save
+    and load with ``weights_only`` as any tensors do."""
+    import copy
+
+    mel = features.MelSpectrogram(n_fft=512, hop_length=128, n_mels=40, verbose=False,
+                                  device="cpu")
+    x = torch.from_numpy(np.random.RandomState(7).randn(2, 4096).astype(np.float32))
+    twin = copy.deepcopy(mel)
+    assert twin.wcos is not mel.wcos
+    with _kernel_route() as calls, torch.no_grad():
+        got, want = twin(x), mel(x)
+    assert calls == {"framed_filterbank": 0, "framed_filterbank_fft": 2}
+    assert torch.equal(got, want)
+    torch.save(mel.params, tmp_path / "params.pt")
+    loaded = torch.load(tmp_path / "params.pt", weights_only=True)
+    assert all(torch.equal(loaded[k], v) for k, v in mel.params.items())
+
+
 @pytest.mark.parametrize("override", ["wcos", "wsin", "mel_basis"])
 def test_a_tensor_passed_in_takes_dense_k2_unchecked(plan_builds, override):
     """A params override is not the transform's own tensor: it is never
@@ -344,6 +385,7 @@ def test_the_blocks_shared_memory_fits_the_mel_defaults(cuda):
 def _card_case(cuda, n_fft, m, b, length, seed=0):
     wc, ws = (t.to(cuda) for t in _bases(n_fft))
     fb = _mel(n_fft, m).to(cuda)
+    fk.mark_own(wc, ws, fb)  # a transform's own tensors, as the route wants them
     g = torch.Generator(device=cuda).manual_seed(seed)
     return torch.randn(b, length, generator=g, device=cuda), wc, ws, fb
 
@@ -359,10 +401,9 @@ def _card_case(cuda, n_fft, m, b, length, seed=0):
 def test_the_kernel_matches_its_mirror_and_dense_k2(cuda, n_fft, m, b, length, hop):
     x, wc, ws, fb = _card_case(cuda, n_fft, m, b, length)
     before = dict(fk.LAUNCHES)
-    route = fk.FFTRoute()
     with torch.no_grad():
-        got = fk.framed_filterbank(x, wc, ws, fb, hop, fft=route)
-        twice = fk.framed_filterbank(x, wc, ws, fb, hop, fft=route)
+        got = fk.framed_filterbank(x, wc, ws, fb, hop)
+        twice = fk.framed_filterbank(x, wc, ws, fb, hop)
         with fk.span("nnaudio.wrap.K2"):
             dense = fk._launch_filterbank(x, wc, ws, fb, hop, 0.0)
     torch.cuda.synchronize()

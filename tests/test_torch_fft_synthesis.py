@@ -95,28 +95,35 @@ def _kernel_route():
 
 # --------------------------------------------------------------- recognition --
 def _factors(which, n_fft, **kw):
-    """The route a transform holds and the three factors it binds."""
+    """Whether the transform's kernels carry the Hermitian weights, and the
+    three factors of its synthesis products."""
     if which == "Griffin_Lim":
         t = features.Griffin_Lim(n_fft=n_fft, device="cpu", **kw)
-        return t._synthesis_fft, (t.kernel_cos_inv, t.kernel_sin_inv, t.window_mask)
+        return True, (t.kernel_cos_inv, t.kernel_sin_inv, t.window_mask)
     if which == "InverseMelSpectrogram":
         t = features.InverseMelSpectrogram(n_fft=n_fft, n_mels=8, verbose=False, device="cpu",
                                            **kw).griffin_lim
-        return t._synthesis_fft, (t.kernel_cos_inv, t.kernel_sin_inv, t.window_mask)
+        return True, (t.kernel_cos_inv, t.kernel_sin_inv, t.window_mask)
     if which == "STFT.inverse":
         t = features.STFT(n_fft=n_fft, iSTFT=True, verbose=False, device="cpu", **kw)
-        return t._synthesis_fft, (t.kernel_cos_inv, t.kernel_sin_inv, t.window_mask)
+        return False, (t.kernel_cos_inv, t.kernel_sin_inv, t.window_mask)
     t = features.iSTFT(n_fft=n_fft, verbose=False, device="cpu", **kw)
-    return t._synthesis_fft, (t.kernel_cos, t.kernel_sin, t.window_mask)
+    return False, (t.kernel_cos, t.kernel_sin, t.window_mask)
+
+
+def _plan(weighted, kc, ks, w):
+    """The route's plan for a call on the products of these factors, made
+    anew (as each iSTFT and Griffin-Lim call makes them)."""
+    return fk.synthesis_fft_plan(*fk.synthesis_kernels(kc, ks, w, weighted))
 
 
 @pytest.mark.parametrize("n_fft", [64, 512, 1024, 4096])
 @pytest.mark.parametrize("which", ["Griffin_Lim", "InverseMelSpectrogram", "iSTFT",
                                    "STFT.inverse"])
 def test_the_transforms_synthesis_factors_are_recognised(which, n_fft):
-    route, (kc, ks, w) = _factors(which, n_fft)
-    plan = route.plan(kc, ks, w)
-    assert plan is not None and route.plan(kc, ks, w) is plan
+    weighted, (kc, ks, w) = _factors(which, n_fft)
+    plan = _plan(weighted, kc, ks, w)
+    assert plan is not None and _plan(weighted, kc, ks, w) is plan
     assert torch.equal(plan.scale, w / n_fft)
     assert torch.equal(plan.twiddle, fk.fft_twiddles(n_fft))
     assert torch.equal(plan.edge, fk.synthesis_edge(n_fft))
@@ -124,15 +131,15 @@ def test_the_transforms_synthesis_factors_are_recognised(which, n_fft):
 
 @pytest.mark.parametrize("kw", [dict(window="hamming"), dict(win_length=700)])
 def test_other_windows_are_recognised(kw):
-    route, (kc, ks, w) = _factors("Griffin_Lim", 1024, **kw)
-    assert route.plan(kc, ks, w) is not None
-    route, (kc, ks, w) = _factors("iSTFT", 1024, **kw)
-    assert route.plan(kc, ks, w) is not None
+    weighted, (kc, ks, w) = _factors("Griffin_Lim", 1024, **kw)
+    assert _plan(weighted, kc, ks, w) is not None
+    weighted, (kc, ks, w) = _factors("iSTFT", 1024, **kw)
+    assert _plan(weighted, kc, ks, w) is not None
 
 
 def test_the_streams_factors_are_recognised():
     s = streaming.StreamingiSTFT(n_fft=1024, hop_length=256, padding="same", device="cpu")
-    plan = s._fft()
+    plan = fk.synthesis_fft_plan(s._kc, s._ks)
     assert plan is not None and torch.equal(plan.scale, s._window / 1024)
 
 
@@ -166,34 +173,33 @@ def test_other_factors_are_not_recognised(case):
 
 def test_a_trainable_basis_or_window_or_bf16_storage_is_never_checked(plan_builds):
     _, (kc, ks, w) = _factors("iSTFT", 512)
-    route = fk.SynthesisFFTRoute(weighted=False)
-    assert route.plan(kc.clone().requires_grad_(), ks, w) is None
-    assert route.plan(kc, ks.clone().requires_grad_(), w) is None
-    assert route.plan(kc, ks, w.clone().requires_grad_()) is None
+    grads = [t.clone().requires_grad_() for t in (kc, ks, w)]
+    fk.mark_own(*grads)  # marked, so that only the grad keeps them from the check
+    assert _plan(False, grads[0], ks, w) is None
+    assert _plan(False, kc, grads[1], w) is None
+    assert _plan(False, kc, ks, grads[2]) is None
     for kw in (dict(trainable_kernels=True), dict(trainable_window=True)):
         layer = features.iSTFT(n_fft=512, verbose=False, device="cpu", **kw)
-        assert layer._synthesis_fft.plan(layer.kernel_cos, layer.kernel_sin,
-                                         layer.window_mask) is None
+        assert _plan(False, layer.kernel_cos, layer.kernel_sin, layer.window_mask) is None
     with config.fast_mode():
-        assert route.plan(kc, ks, w) is None
+        assert _plan(False, kc, ks, w) is None
     assert plan_builds == []
 
 
 def test_the_verdict_is_kept_until_a_factor_changes(plan_builds):
     gl = features.Griffin_Lim(n_fft=512, hop_length=128, device="cpu")
     ops = gl.kernel_cos_inv, gl.kernel_sin_inv, gl.window_mask
-    route = gl._synthesis_fft
-    first = route.plan(*ops)
-    assert first is not None and route.plan(*ops) is first and len(plan_builds) == 1
+    first = _plan(True, *ops)
+    assert first is not None and _plan(True, *ops) is first and len(plan_builds) == 1
     with torch.no_grad():
         gl.kernel_sin_inv[5, 9] += 0.5  # an in-place edit: checked again, and refused
-    assert route.plan(*ops) is None and len(plan_builds) == 2
+    assert _plan(True, *ops) is None and len(plan_builds) == 2
     gl.load_state_dict(features.Griffin_Lim(n_fft=512, hop_length=128,
                                             device="cpu").state_dict())
-    assert route.plan(*ops) is not None and len(plan_builds) == 3
+    assert _plan(True, *ops) is not None and len(plan_builds) == 3
     with torch.no_grad():
         gl.window_mask.mul_(0.5)  # another window: a new scale
-    assert torch.equal(route.plan(*ops).scale, gl.window_mask / 512)
+    assert torch.equal(_plan(True, *ops).scale, gl.window_mask / 512)
     assert len(plan_builds) == 4
 
 

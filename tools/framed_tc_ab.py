@@ -105,8 +105,10 @@ def main() -> int:
         gen = torch.Generator(device=dev).manual_seed(0)
         st1 = STFT(n_fft=1024, hop_length=256, verbose=False, device=dev)
         st2 = STFT(n_fft=2048, hop_length=512, verbose=False, device=dev)
+        # a copy of the filterbank, no transform's own: dense K2 (framed_tc),
+        # never K2's FFT route
         fb = MelSpectrogram(sr=16000, n_fft=1024, hop_length=256, n_mels=64,
-                            verbose=False, device=dev).mel_basis
+                            verbose=False, device=dev).mel_basis.clone()
         xa = torch.randn(32, 161024, generator=gen, device=dev)
         xb = torch.randn(32, 222548, generator=gen, device=dev)
         xe = torch.randn(32, 221524, generator=gen, device=dev)
