@@ -40,7 +40,13 @@ from a fixed constant):
     source, counted as ``synthesis_ola_fft``), held against its plain mirror,
     the dense plain version and fp64 at the Griffin-Lim cell's, the
     synthesis stream's and (b)'s shapes, an odd hop, and the halves of a
-    (B, F, T, 2) stack, twice for bit equality;
+    (B, F, T, 2) stack, twice for bit equality. K4 has three: a frozen
+    Fourier basis with fp32 carries in fp32 storage takes its FFT route (the
+    same source, counted as ``gl_step_fft``), held against its plain mirror
+    and against the pair (K5) and the update at the Griffin-Lim cell's step
+    and at odd hops and widths, twice for bit equality; bf16 carries take
+    the tensor-core K4 (the checks above launch it directly, in both carry
+    types); every other step the pair and the update;
  4. the slice through the public entry points, with the launch counts set
     to 0 before each path and read after it:
     (a) the flagship SpectrogramClassifier answering 4 requests of
@@ -51,7 +57,7 @@ from a fixed constant):
         harmonic clips at 22.05 kHz, (e) mel -> audio: MelSpectrogram 80
         (1024/256) then InverseMelSpectrogram (64 NNLS + 32 Griffin-Lim
         iterations, bf16 carries), and (f) Griffin_Lim 2048/512 with fp32
-        iterations on (b)'s magnitude; (g) CQT1992v2 at its defaults (84 bins
+        iterations on (b)'s magnitude (K4's FFT route); (g) CQT1992v2 at its defaults (84 bins
         of 16384 samples, hop 512) on 32 x 10 s and on one 10 s clip,
         Magnitude, in both modes; (h) its Complex output, and Complex ->
         ``.inverse`` at sr 22050 / fmin 55 / 48 bins / hop 128 on seeded
@@ -163,7 +169,7 @@ REPS = 15
 # each phase draws its random inputs from a generator of its own, seeded from
 # a fixed constant, so that adding or removing a phase, or a draw inside one,
 # changes no other phase's inputs
-PHASE_SEEDS = {"3 kernels": 301, "3 tensor cores": 302, "3 K6": 303, "3 K3": 304,
+PHASE_SEEDS = {"3 kernels": 301, "3 tensor cores": 302, "3 K6": 303, "3 K3": 304, "3 K4": 305,
                "a highest": 401, "a default": 402, "b highest": 403, "b default": 404,
                "d": 405, "g": 406, "j-l": 407, "b grad, d step": 408, "m": 409,
                "o": 410, "p": 411, "q": 412, "s": 413, "t": 414, "u": 415,
@@ -184,7 +190,8 @@ PROFILE_NAMES = {"framed_magnitude": "framed_tc_kernel",
                  "framed_pair": "framed_tc_kernel",
                  "framed_magnitude_kchunk": "kchunk_tc_kernel",
                  "framed_filterbank_fft": "framed_fft_filterbank_kernel",
-                 "synthesis_ola_fft": "synthesis_fft_ola_kernel"}
+                 "synthesis_ola_fft": "synthesis_fft_ola_kernel",
+                 "gl_step_fft": "gl_step_fft_kernel"}
 
 
 def k2_route(mode):
@@ -337,7 +344,7 @@ def fp64_errors(fk, x, wc, ws, fb, S, p_re, p_im, hop, mom):
                    for k, (g, r) in enumerate(zip(got, ref4)))
     return {"K2": (err(fk.framed_filterbank(x, wc, ws, fb, hop, eps=1e-8), ref2),
                    err(fk.framed_filterbank_plain(x, wc, ws, fb, hop, eps=1e-8), ref2)),
-            "K4": (err4(fk.gl_step(x, wc, ws, S, p_re, p_im, hop, mom)),
+            "K4": (err4(fk._launch_gl_step(x, wc, ws, S, p_re, p_im, hop, mom)),
                    err4(fk.gl_step_plain(x, wc, ws, S, p_re, p_im, hop, mom)))}
 
 
@@ -591,7 +598,7 @@ def main() -> int:
             for carry in (torch.float32, torch.bfloat16):
                 p_re = randn(b, wc.shape[0], t).to(carry)
                 p_im = randn(b, wc.shape[0], t).to(carry)
-                k4 = fk.gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)
+                k4 = fk._launch_gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)  # tensor cores
                 torch.cuda.synchronize()
                 r_err, c_err, mag_err, excluded, abs_err = gl_step_errors(
                     fk, k4, x, wc, ws, S, p_re, p_im, hop, MOM)
@@ -651,7 +658,7 @@ def main() -> int:
                        "K1 power": (fk.framed_magnitude(x, wc, ws, hop, square=True),),
                        "K2": (fk.framed_filterbank(x, wc, ws, fb, hop, eps=1e-8),)}
                 for c, (p_re, p_im) in prev.items():
-                    out[f"K4 {c}"] = fk.gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)
+                    out[f"K4 {c}"] = fk._launch_gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)
                 return out
             got = launch_all()
             torch.cuda.synchronize()
@@ -935,6 +942,46 @@ def main() -> int:
         if not ok:
             fail(f"K3's FFT route disagrees with its mirror, fp64 or itself: {label}")
         del sre, sim, k3, mirror, plain, ref
+    # K4's FFT route, on a transform's own basis with fp32 carries: against
+    # its plain mirror and the pair (K5) and the update, r everywhere and c
+    # where |n| >= 1e-2 rms|n| (gl_step_errors), twice for bit equality
+    gen = phase_gen("3 K4")
+    for label, b, t, n, hop in (("(e) 1024/256", 32, 862, 1024, 256),
+                                ("(f) 2048/512", 32, 431, 2048, 512),
+                                ("hop 441", 3, 101, 2048, 441),
+                                ("hop 127", 4, 300, 512, 127),
+                                ("N 8192, hop 2048", 2, 9, 8192, 2048)):
+        wc, ws = fourier(n)
+        f = n // 2 + 1
+        x = randn(b, n + hop * (t - 1))
+        S = torch.rand(b, f, t, generator=gen, device=dev)
+        p_re, p_im = randn(b, f, t), randn(b, f, t)
+        fk.reset_launches()
+        k4 = fk.gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)
+        torch.cuda.synchronize()
+        routed = fk.LAUNCHES["gl_step_fft"] == 1 and fk.LAUNCHES["framed_pair"] == 0
+        same = all(torch.equal(a, c) for a, c in
+                   zip(k4, fk.gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)))
+        mirror = fk.gl_step_fft_plain(x, wc, ws, S, p_re, p_im, hop, MOM)
+        pair = fk.gl_update(*fk.framed_pair(x, wc, ws, hop), S, p_re, p_im, MOM)
+        e_mirror = max(rel_err(k4[k], mirror[k]) for k in (2, 3))  # r; c below
+        r_err, c_err, mag_err, excluded, _ = gl_step_errors(fk, k4, x, wc, ws, S, p_re,
+                                                            p_im, hop, MOM)
+        e_pair = max(rel_err(k4[k], pair[k]) for k in (2, 3))
+        ok = (routed and same and e_mirror <= 1e-5 and e_pair <= TOL["highest"]
+              and r_err <= TOL["highest"] and c_err <= TOL["highest"]
+              and mag_err <= MAG_TOL[torch.float32])
+        if label == "(e) 1024/256":
+            max_abs["gl_step_fft"] = max(float((k4[k] - mirror[k]).abs().max()) for k in (2, 3))
+        log(f"[check] highest  K4 FFT {label:16s} B={b} T={t} N={n} hop={hop}: r vs its mirror "
+            f"{e_mirror:.2e} (tol 1e-05), r vs the pair {e_pair:.2e}; vs the plain step: r "
+            f"{r_err:.2e}, c {c_err:.2e} on {S.numel() - excluded} of {S.numel()} elements, "
+            f"max||c|-S|/max S {mag_err:.2e}; second launch "
+            f"{'bit-equal' if same else 'DIFFERS'}{'' if routed else '; NOT ROUTED'} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K4's FFT route disagrees with its mirror, the pair or itself: {label}")
+        del x, S, p_re, p_im, k4, mirror, pair
 
     # ------------------------------------------------- 4. the serving slice --
     # a numpy rfft oracle at a small input first
@@ -1113,7 +1160,7 @@ def main() -> int:
         S_f = st_f(xh)
         drive("(f) Griffin-Lim fp32, 2 iterations", lambda: gl2(S_f), shape_f,
               tol=GL_TOL["highest"],
-              expect={"framed_pair": 2, "synthesis_ola_fft": 3})
+              expect={"gl_step_fft": 2, "synthesis_ola_fft": 3})
 
         n_iter = 32
         inv, gl = inverse_mel(n_iter), griffin_lim(n_iter)
@@ -1124,7 +1171,7 @@ def main() -> int:
                  target_e, {k2_route("highest"): 1, "gl_step": n_iter,
                             "synthesis_ola": n_iter, "synthesis_ola_fft": 1}),
                 ("(f) Griffin-Lim fp32", lambda: gl(S_f), shape_f, st_f, S_f,
-                 {"framed_pair": n_iter, "synthesis_ola_fft": n_iter + 1})):
+                 {"gl_step_fft": n_iter, "synthesis_ola_fft": n_iter + 1})):
             (audio,), dt, counts = counted(label, fn, shape, expect)
             sc = spectral_convergence(st, audio, target)
             sc_plain = spectral_convergence(st, plain_path(fn), target)
@@ -2288,6 +2335,31 @@ def main() -> int:
             def gl_lib():
                 X = stft_lib(x4, n4, 256, win4)
                 return fk.gl_update(X.real, -X.imag, S4, *p4, MOM)
+            if mode == "highest":
+                # K4's FFT route at the same step with fp32 carries (the
+                # Griffin-Lim cell's): the padded signal in, S and two
+                # carries in, four out; a real FFT a frame and 12 operations
+                # a bin (bench_port's count). Beside it the pair (K5) and the
+                # update, the route it replaces
+                p4f = [randn(b4, f4, t4) for _ in range(2)]
+
+                def gl_lib_fp32():
+                    X = stft_lib(x4, n4, 256, win4)
+                    return fk.gl_update(X.real, -X.imag, S4, *p4f, MOM)
+                wc4, ws4 = wc2.clone(), ws2.clone()  # not the STFT's own: the pair
+                rows["gl_step_fft"] = dict(
+                    ms=kernel_ms(lambda: fk.gl_step(x4, wc2, ws2, S4, *p4f, 256, MOM)),
+                    pair_ms=kernel_ms(lambda: fk.gl_step(x4, wc4, ws4, S4, *p4f, 256, MOM)),
+                    plain_ms=kernel_ms(lambda: fk.gl_step_fft_plain(
+                        x4, wc2, ws2, S4, *p4f, 256, MOM)),
+                    library_ms=kernel_ms(gl_lib_fp32),
+                    library="torch.stft + the elementwise update",
+                    flops=b4 * t4 * (2.5 * n4 * np.log2(n4) + 12 * f4),
+                    bytes=4 * (b4 * length4 + 7 * b4 * f4 * t4),
+                    shape=f"B={b4} L={length4} n_fft={n4} hop=256 F={f4} T={t4}, fp32 carries")
+                log(f"[time] highest  gl_step_fft: the pair (K5) and the update on the same "
+                    f"step {rows['gl_step_fft']['pair_ms']:.3f} ms")
+                del p4f, wc4, ws4
             rows["gl_step"] = dict(
                 ms=kernel_ms(lambda: fk.gl_step(x4, wc2, ws2, S4, *p4, 256, MOM)),
                 plain_ms=kernel_ms(lambda: fk.gl_step_plain(x4, wc2, ws2, S4, *p4, 256, MOM)),
@@ -2409,6 +2481,8 @@ def main() -> int:
                                   "nnaudio_tpu/ops/framed_matmul.py:296", "highest"),
         "synthesis_ola_fft": ("nnaudio_tpu_torch/csrc/framed_fft.cu",
                               "nnaudio_tpu/ops/framed_matmul.py:878", "highest"),
+        "gl_step_fft": ("nnaudio_tpu_torch/csrc/framed_fft.cu",
+                        "nnaudio_tpu/ops/framed_matmul.py:239", "highest"),
     }
     kernels = []
     for k, (src, replaces, mode) in meta.items():

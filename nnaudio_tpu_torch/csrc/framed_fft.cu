@@ -819,3 +819,264 @@ extern "C" int nnaudio_synthesis_fft_twiddles(int n) {
     default: return 0;
   }
 }
+
+// ---------------------------------------------------------------------------
+// K4's FFT route: one Griffin-Lim analysis step for a frozen Fourier basis,
+// the real FFT of each frame and the loop's carry update in one pass.
+//
+// Stands beside nnaudio_tpu/ops/framed_matmul.py:
+//   K4  _gl_step_kernel  :239  (launched by _framed_gl_step)
+// which computes the pair as a dense product with the bases, then the
+// update, as the port's dense K4 (framed_tc.cu GL_STEP) does; where the
+// pair is the windowed DFT of its window w = wcos[0] (ops/framed_kernels.py,
+// build_gl_step_fft_plan), this kernel computes, for fp32 storage and fp32
+// carries and N a power of two in [64, 8192],
+//   r[b,f,t] = rfft(w * x[b, t*hop : t*hop + N])[f]      (r = (re, -im_raw))
+//   n = r - mom p,  c = S n rsqrt(|n|^2 + 1e-32)
+// and writes c_re, c_im, r_re, r_im, each planar (B, N/2 + 1, T): the
+// update's arithmetic and constant are ops/framed_kernels.py gl_update's.
+//
+// What bounds it on the H100: at cell 5's shape (B=32, T=862, N=1024, hop
+// 256) the padded signal in (28.3 MB), S, p_re and p_im in and the four
+// carries out (56.6 MB a plane) are 424.6 MB, 0.127 ms at 3.35 TB/s; the
+// arithmetic, a real FFT a frame and 12 operations a bin, is 0.88 GFLOP,
+// 13 us on the CUDA cores. Bytes, then: the design moves each plane once,
+// along T, with the frames' FFTs kept in shared memory between the two.
+//
+// Design:
+// - A block of GL_THREADS threads takes C consecutive frames of the
+//   flattened (b, t) index at a time (a run: 32 frames for N <= 1024), one
+//   frame to a team of P = N/64 threads, every gridDim.x runs. Each team
+//   reads its frame from device memory, windowed on the way (K2's loader: a
+//   run's frames overlap by N - hop, which the cache serves), runs K2's
+//   Stockham passes on its buffer, and unpacks the real FFT's bins f and
+//   N/2 - f from the complex points f and N/2 - f in place, halved: bin f
+//   at the buffer's point f. At N >= 1024 the buffers of a run take 139.5
+//   KB, so an SM holds one block.
+// - The update takes the run's bins by rows: element e of the block is bin
+//   e / C of frame e % C, so each warp reads S, p_re and p_im and writes c
+//   and r in runs of C consecutive frames of a row, 128 bytes at C = 32
+//   (the carries stay planar (B, F, T), as K3's route and the NNLS read
+//   them); a thread reads GL_U elements' operands before it computes any.
+//   The update's operations are rounded one at a time, in gl_update's
+//   order (no contraction into fused multiply-adds), rsqrtf as ATen's
+//   rsqrt. The update moves 93% of the bytes and takes most of the time:
+//   timed on an H100 at cell 5's step, a build without it takes 0.055 ms
+//   of the kernel's ~0.245 ms; runs of 16 frames (256 threads, two blocks
+//   an SM), more elements in flight a thread (4 or 8) and reading the next
+//   run's frames during the update were each slower.
+// - Fixed order, no atomics: every run gives the same bits, whatever the
+//   grid.
+// ops/framed_kernels.py's gl_step_fft_plain repeats this arithmetic in
+// PyTorch.
+
+namespace {
+
+constexpr int GL_THREADS = 512;  // threads of a block, at most
+constexpr int GL_U = 2;          // elements a thread reads before it updates them
+
+template <int LOG2H>
+struct GLShape {
+  static constexpr int H = Shape<LOG2H>::H, P = Shape<LOG2H>::P;
+  static constexpr int STRIDE = Shape<LOG2H>::STRIDE;
+  static constexpr int C = GL_THREADS / P < MAX_TEAMS ? GL_THREADS / P : MAX_TEAMS;  // a run
+  static constexpr int THREADS = P * C;
+  static constexpr int LOG2C = ilog2(C);
+  static constexpr int F = H + 1;  // bins of a frame
+};
+
+// Shared memory of a step block: the run's C frames' offsets into (B, F, T),
+// then their buffers.
+template <int LOG2H>
+constexpr size_t gl_smem_bytes() {
+  using G = GLShape<LOG2H>;
+  return 8 * static_cast<size_t>(G::C) + 8 * static_cast<size_t>(G::C) * G::STRIDE;
+}
+
+template <int LOG2H>
+__global__ void __launch_bounds__(GLShape<LOG2H>::THREADS, 1)
+gl_step_fft_kernel(const float* __restrict__ x, const float* __restrict__ window,
+                   const float2* __restrict__ twiddle, const float* __restrict__ mag,
+                   const float* __restrict__ p_re, const float* __restrict__ p_im,
+                   float* __restrict__ c_re, float* __restrict__ c_im,
+                   float* __restrict__ r_re, float* __restrict__ r_im, int L, int hop, int T,
+                   int frames, float mom) {
+  using S = Shape<LOG2H>;
+  using G = GLShape<LOG2H>;
+  constexpr int MP = S::H / RADIX;  // the first pass's stride, in points
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long* base = reinterpret_cast<long long*>(smem);     // C: b F T + t, or -1
+  float2* buf = reinterpret_cast<float2*>(base + G::C);     // C frames of STRIDE
+
+  const int tid = threadIdx.x;
+  const int team = tid / S::P, p = tid % S::P;
+  float2* z = buf + team * S::STRIDE;
+  float2 v[RADIX];
+
+  for (int g0 = blockIdx.x * G::C; g0 < frames; g0 += gridDim.x * G::C) {
+    // the first pass, from the team's frame as read: windowed, its DFT,
+    // placed; then the passes after it
+    fetch<LOG2H>(v, x, g0 + team, frames, T, L, hop, p);
+#pragma unroll
+    for (int r = 0; r < RADIX; ++r) {
+      const float2 w = __ldg(reinterpret_cast<const float2*>(window) + p + r * MP);
+      v[r] = make_float2(v[r].x * w.x, v[r].y * w.y);
+    }
+    dft<RADIX>(v);
+    put<ilog2(RADIX), 0>(z, p, v);
+    team_sync<S::P, S::THREADS>(team);
+    fft_passes<LOG2H, ilog2(RADIX)>(z, p, team, twiddle);
+
+    // unpack in place, halved: for f = p + q P in [0, N/4], bin f is
+    // (E - i W_N^f O) / 2 and bin N/2 - f is conj(E + i W_N^f O) / 2, each
+    // at its own point (Nyquist at point N/2, past the FFT's; bin N/4 once,
+    // by thread 0). A thread reads and writes only its own pairs' points.
+    constexpr int PAIRS = RADIX / 2 + 1;
+    const int pp = pad16(p);
+#pragma unroll
+    for (int q = 0; q < PAIRS; ++q) {
+      const int f = p + q * S::P;
+      if (q < PAIRS - 1 || p == 0) {
+        const int at = pad16_add<S::P>(p, pp, q);
+        const float2 a = z[at], c = z[pad16((S::H - f) & (S::H - 1))];
+        const float er = a.x + c.x, ei = a.y - c.y;
+        const float2 wo = cmul(make_float2(a.x - c.x, a.y + c.y), __ldg(twiddle + f));
+        z[at] = make_float2(0.5f * (er + wo.y), 0.5f * (ei - wo.x));
+        if (q < PAIRS - 1) z[pad16(S::H - f)] = make_float2(0.5f * (er - wo.y), -0.5f * (ei + wo.x));
+      }
+    }
+    if (tid < G::C) {
+      const int g = g0 + tid, b = g / T;
+      base[tid] = g < frames ? static_cast<long long>(b) * G::F * T + (g - b * T) : -1;
+    }
+    __syncthreads();
+
+    // the update, by rows of the run's frames
+    for (int e0 = tid; e0 < G::F * G::C; e0 += GL_U * G::THREADS) {
+      long long at[GL_U];
+      float s[GL_U], pr[GL_U], pi[GL_U];
+#pragma unroll
+      for (int u = 0; u < GL_U; ++u) {
+        const int e = e0 + u * G::THREADS;
+        const long long d = e < G::F * G::C ? base[e & (G::C - 1)] : -1;
+        at[u] = d < 0 ? -1 : d + static_cast<long long>(e >> G::LOG2C) * T;
+        s[u] = at[u] < 0 ? 0.f : __ldg(mag + at[u]);
+        pr[u] = at[u] < 0 ? 0.f : __ldg(p_re + at[u]);
+        pi[u] = at[u] < 0 ? 0.f : __ldg(p_im + at[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < GL_U; ++u) {
+        if (at[u] < 0) continue;
+        const int e = e0 + u * G::THREADS;
+        const float2 r = buf[(e & (G::C - 1)) * S::STRIDE + pad16(e >> G::LOG2C)];
+        const float nr = __fsub_rn(r.x, __fmul_rn(mom, pr[u]));
+        const float ni = __fsub_rn(r.y, __fmul_rn(mom, pi[u]));
+        const float sq = __fadd_rn(__fadd_rn(__fmul_rn(nr, nr), __fmul_rn(ni, ni)), 1e-32f);
+        const float scale = __fmul_rn(s[u], rsqrtf(sq));
+        c_re[at[u]] = __fmul_rn(nr, scale);
+        c_im[at[u]] = __fmul_rn(ni, scale);
+        r_re[at[u]] = r.x;
+        r_im[at[u]] = r.y;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int LOG2H>
+int launch_gl_step(const float* x, const float* window, const float2* twiddle, const float* mag,
+                   const float* p_re, const float* p_im, float* c_re, float* c_im, float* r_re,
+                   float* r_im, int B, int L, int hop, int T, float mom, cudaStream_t stream) {
+  using G = GLShape<LOG2H>;
+  const long long frames = static_cast<long long>(B) * T;
+  if (frames < 1 || frames > (1LL << 30) || hop < 1 || L < Shape<LOG2H>::N ||
+      static_cast<long long>(hop) * (T - 1) + Shape<LOG2H>::N > L)
+    return cudaErrorInvalidValue;
+  const size_t bytes = gl_smem_bytes<LOG2H>();
+  static bool opened[MAX_DEVICES];
+  static int held[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!opened[dev]) {
+    if (bytes > 48 * 1024) {
+      err = cudaFuncSetAttribute(gl_step_fft_kernel<LOG2H>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+      if (err != cudaSuccess) return err;
+    }
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gl_step_fft_kernel<LOG2H>,
+                                                        G::THREADS, bytes);
+    if (err != cudaSuccess) return err;
+    held[dev] = n > 0 ? n : 1;
+    opened[dev] = true;
+  }
+  const long long resident = static_cast<long long>(device_sms()) * held[dev];
+  const long long runs = (frames + G::C - 1) / G::C;
+  const long long grid = runs < resident ? runs : resident;
+  gl_step_fft_kernel<LOG2H><<<static_cast<unsigned>(grid), G::THREADS, bytes, stream>>>(
+      x, window, twiddle, mag, p_re, p_im, c_re, c_im, r_re, r_im, L, hop, T,
+      static_cast<int>(frames), mom);
+  return cudaGetLastError();
+}
+
+template <int LOG2H>
+int gl_twiddles_if_fits() {
+  return gl_smem_bytes<LOG2H>() <= static_cast<size_t>(SMEM_LIMIT) ? pass_offset(LOG2H, LOG2H)
+                                                                   : 0;
+}
+
+}  // namespace
+
+// c_re, c_im, r_re, r_im (B, n/2 + 1, T) fp32 <- x (B, L) fp32 framed by n
+// (a power of two in [64, 8192]) at hop, T = (L - n) / hop + 1, with S,
+// p_re, p_im (B, n/2 + 1, T) fp32 and mom; window (n,) and twiddle from
+// ops/framed_kernels.py's GLStepFFTPlan. Returns a cudaError_t.
+extern "C" int nnaudio_gl_step_fft(const void* x, const void* window, const void* twiddle,
+                                   const void* mag, const void* p_re, const void* p_im,
+                                   void* c_re, void* c_im, void* r_re, void* r_im, int B, int L,
+                                   int n, int hop, int T, float mom, void* stream) {
+  const float* xs = static_cast<const float*>(x);
+  const float* w = static_cast<const float*>(window);
+  const float2* tw = static_cast<const float2*>(twiddle);
+  const float* s = static_cast<const float*>(mag);
+  const float* pr = static_cast<const float*>(p_re);
+  const float* pi = static_cast<const float*>(p_im);
+  float* cr = static_cast<float*>(c_re);
+  float* ci = static_cast<float*>(c_im);
+  float* rr = static_cast<float*>(r_re);
+  float* ri = static_cast<float*>(r_im);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NNAUDIO_GL_STEP(LOG2H) \
+  launch_gl_step<LOG2H>(xs, w, tw, s, pr, pi, cr, ci, rr, ri, B, L, hop, T, mom, st)
+  switch (n) {
+    case 64: return NNAUDIO_GL_STEP(5);
+    case 128: return NNAUDIO_GL_STEP(6);
+    case 256: return NNAUDIO_GL_STEP(7);
+    case 512: return NNAUDIO_GL_STEP(8);
+    case 1024: return NNAUDIO_GL_STEP(9);
+    case 2048: return NNAUDIO_GL_STEP(10);
+    case 4096: return NNAUDIO_GL_STEP(11);
+    case 8192: return NNAUDIO_GL_STEP(12);
+    default: return cudaErrorInvalidValue;
+  }
+#undef NNAUDIO_GL_STEP
+}
+
+// The length of the twiddle table the step kernel reads for frames of n
+// samples, or 0 where it cannot run them: n is not a power of two in
+// [64, 8192], or a block's shared memory would pass the H100's.
+extern "C" int nnaudio_gl_step_fft_twiddles(int n) {
+  switch (n) {
+    case 64: return gl_twiddles_if_fits<5>();
+    case 128: return gl_twiddles_if_fits<6>();
+    case 256: return gl_twiddles_if_fits<7>();
+    case 512: return gl_twiddles_if_fits<8>();
+    case 1024: return gl_twiddles_if_fits<9>();
+    case 2048: return gl_twiddles_if_fits<10>();
+    case 4096: return gl_twiddles_if_fits<11>();
+    case 8192: return gl_twiddles_if_fits<12>();
+    default: return 0;
+  }
+}

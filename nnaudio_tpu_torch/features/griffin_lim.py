@@ -7,11 +7,13 @@ the target magnitudes. The loop carries the magnitude-imposed spectrum ``c``
 and the last analysis ``r`` as planar (B, F, T) re/im tensors, in bf16 for
 ``iter_precision='default'`` and fp32 for ``'highest'``.
 
-Two loops, chosen as the JAX package chooses them: with the kernels on, a
-mode other than ``tensorfloat32`` and ``iter_precision='default'``, the
-analysis half of each iteration is one fused step (``gl_step``, the K4
-kernel); otherwise it is the pair (``framed_basis_pair``, the K5 kernel)
-followed by the elementwise update. Both run on the true (B, F, T) shapes.
+The analysis half of each iteration is one step of the ops layer
+(``gl_step``), which picks its route from the operands: for fp32 carries on
+the transform's own frozen Fourier basis in fp32 storage, K4's FFT route
+(the real FFT of each frame and the update in one kernel); for bf16 carries
+outside ``tensorfloat32``, the tensor-core K4, as the JAX package fuses its
+loop; else the pair (K5) followed by the elementwise update. All run on the
+true (B, F, T) shapes.
 
 Randomness: the JAX package draws the initial phase with
 ``jax.random.normal(key, (b, f, t))``. The port takes the drawn phase itself
@@ -28,8 +30,8 @@ from ..core.frame import pad_signal
 from ..core.overlap import normalize_by_window_envelope, window_sumsquare
 from ..filters.fourier import create_fourier_basis
 from ..filters.windows import pad_center, window_dispatch
-from ..ops.dispatch import framed_basis_pair, gl_step, synthesis_ola
-from ..ops.framed_kernels import gl_update, hermitian_weights, synthesis_kernels
+from ..ops.dispatch import gl_step, synthesis_ola
+from ..ops.framed_kernels import hermitian_weights, synthesis_kernels
 from .base import SpectralTransform, to_float32
 
 
@@ -122,8 +124,6 @@ class Griffin_Lim(SpectralTransform):
         hop = self.hop_length
         mom = self.momentum / (1 + self.momentum)
         cfg = get_config()
-        fused = (cfg.use_kernels and cfg.matmul_precision != "tensorfloat32"
-                 and self.iter_precision == "default")
         carry = torch.bfloat16 if self.iter_precision == "default" else torch.float32
 
         w_sum = window_sumsquare(params["window_mask"], t, hop, self.n_fft)
@@ -142,13 +142,8 @@ class Griffin_Lim(SpectralTransform):
                 signal = self._synthesize(c_re, c_im, kc, ks, w_sum)
                 if self.center:
                     signal = pad_signal(signal, self.pad_amount, self.pad_mode)
-                if fused:
-                    c_re, c_im, p_re, p_im = gl_step(signal, wcos, wsin, S,
-                                                     p_re, p_im, hop, mom)
-                else:
-                    re, im = framed_basis_pair(signal, wcos, wsin, hop)
-                    c_re, c_im, p_re, p_im = gl_update(re, im, S, p_re, p_im,
-                                                       mom)
+                c_re, c_im, p_re, p_im = gl_step(signal, wcos, wsin, S, p_re, p_im,
+                                                 hop, mom)
         finally:
             set_matmul_precision(prev)
         return self._synthesize(c_re.float(), c_im.float(), kc, ks, w_sum)

@@ -12,14 +12,17 @@ in which case it takes the plain version on every device:
   bank of at most 128 bins and at least :data:`KCHUNK_MIN_N` samples (the CQT
   family's wavelet banks), else K1; ``framed_filterbank``: K2;
 - ``synthesis_ola``: K3;
-- ``gl_step``: K4, one Griffin-Lim analysis step.
+- ``gl_step``: K4, one Griffin-Lim analysis step (its route chosen in
+  :mod:`.framed_kernels`: the FFT route, the tensor-core K4, or the pair and
+  the update).
 
 Under autograd (grad enabled and an operand that requires grad) the
 magnitude, power and filterbank wrappers take the pair (K5) and compute their
 epilogue in PyTorch, as the JAX package's differentiated forwards do; the
 route is decided in :mod:`.framed_kernels`, so no caller records a K1, K2 or
-K6 forward. K2's and K3's FFT routes are chosen there too, from the
-operands (``framed_kernels.fft_plan``, ``synthesis_fft_plan``).
+K6 forward. K2's, K3's and K4's FFT routes are chosen there too, from the
+operands (``framed_kernels.fft_plan``, ``synthesis_fft_plan``,
+``gl_step_fft_plan``).
 
 K1, K2, K4 and K5 are one tensor-core kernel (``csrc/framed_tc.cu``) with
 four epilogues; K3 and K6 have sources of their own.

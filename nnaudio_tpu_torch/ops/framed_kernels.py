@@ -8,6 +8,7 @@ wrapper                      CUDA kernel (``csrc/``)         TPU kernel replaced
 ``synthesis_ola``            ``synthesis_ola.cu`` K3         ``_synthesis_ola_kernel``
                              (``framed_fft.cu``, FFT route)
 ``gl_step``                  ``framed_tc.cu`` K4             ``_gl_step_kernel``
+                             (``framed_fft.cu``, FFT route)
 ``framed_pair``              ``framed_tc.cu`` K5             ``_pair_kernel``
 ``framed_magnitude_kchunk``  ``framed_kchunk.cu`` K6         ``_magnitude_kchunk_kernel``
 ===========================  ==============================  =====================
@@ -18,19 +19,23 @@ each group of :data:`KCHUNK_GROUP` bins multiplied only over the columns
 where its rows are nonzero (:func:`kchunk_ranges`), found on the device at
 every call.
 
-K2 and K3 have a second route each, chosen here from the operands (no
+K2, K3 and K4 have a second route each, chosen here from the operands (no
 caller hands one over): where the operands are a transform's own tensors
 (:func:`mark_own`), frozen, in fp32 storage, and make a Fourier basis, the
 route's plan (recognised once per set of tensors, :func:`fft_plan`,
-:func:`synthesis_fft_plan`) sends the call to ``framed_fft.cu``. K2's is a
-real FFT of each frame on the CUDA cores, its power and the filterbank's
-bands of nonzero columns (:func:`framed_filterbank_fft_plain` repeats its
-arithmetic), for the windowed DFT of ``wcos[0]``; K3's, for synthesis
-products that :func:`synthesis_kernels` made of the Hermitian-weighted
-Fourier basis, an inverse real FFT of each frame of the fp32 spectra, read
-where they lie, and its overlap-add (:func:`synthesis_ola_fft_plain`). Every
-other call (a tensor passed in, a trainable basis, the inverse CQT's dual
-atoms, K5's backward) takes the tensor-core K2 or K3.
+:func:`synthesis_fft_plan`, :func:`gl_step_fft_plan`) sends the call to
+``framed_fft.cu``. K2's is a real FFT of each frame on the CUDA cores, its
+power and the filterbank's bands of nonzero columns
+(:func:`framed_filterbank_fft_plain` repeats its arithmetic), for the
+windowed DFT of ``wcos[0]``; K3's, for synthesis products that
+:func:`synthesis_kernels` made of the Hermitian-weighted Fourier basis, an
+inverse real FFT of each frame of the fp32 spectra, read where they lie, and
+its overlap-add (:func:`synthesis_ola_fft_plain`); K4's, for that basis and
+fp32 carries, the real FFT of each frame and the Griffin-Lim update
+(:func:`gl_step_fft_plain`). Every other call (a tensor passed in, a
+trainable basis, the inverse CQT's dual atoms, K5's backward) takes the
+tensor-core K2 or K3; a Griffin-Lim step with bf16 carries takes the
+tensor-core K4, and with fp32 carries the pair (K5) and :func:`gl_update`.
 
 K1, K2, K4 and K5 are one tensor-core kernel (``wgmma``) with four
 epilogues. In fp32 storage it takes three TF32 products of operands split as
@@ -76,7 +81,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from .._spans import copied, note_launch, note_route, span
-from ..config import matmul_numerics, round_to_storage, storage_dtype
+from ..config import get_config, matmul_numerics, round_to_storage, storage_dtype
 from ..core.apply import apply_basis, project
 from ..core.frame import frame_signal, frames_to_signal, num_frames
 
@@ -84,7 +89,8 @@ from ..core.frame import frame_signal, frames_to_signal, num_frames
 LAUNCHES: dict[str, int] = {"framed_magnitude": 0, "framed_filterbank": 0,
                             "synthesis_ola": 0, "gl_step": 0,
                             "framed_pair": 0, "framed_magnitude_kchunk": 0,
-                            "framed_filterbank_fft": 0, "synthesis_ola_fft": 0}
+                            "framed_filterbank_fft": 0, "synthesis_ola_fft": 0,
+                            "gl_step_fft": 0}
 
 
 def reset_launches() -> None:
@@ -348,14 +354,14 @@ def _fft_stockham(zr, zi, table):
     return zr, zi
 
 
-def fft_power_plain(frames, window, eps=0.0):
-    """``|rfft(window * frame)|^2 + eps`` of (..., N) fp32 frames as K2's FFT
-    route computes it: the windowed frame packed as N/2 complex points
+def _rfft_pairs(frames, window):
+    """The real FFT of windowed (..., N) fp32 frames as the FFT routes of K2
+    and K4 unpack it: the windowed frame packed as N/2 complex points
     ``(x[2j], x[2j+1])``, their FFT by :func:`_fft_stockham`, then for each
     f of [0, N/4], with ``A = Z[f]``, ``B = Z[N/2 - f]`` (indices mod N/2),
-    ``E = A + conj B``, ``O = A - conj B``: bin f is ``X = E - i W_N^f O``
-    and bin N/2 - f is ``E + i W_N^f O`` (bin N/4 is taken from the first),
-    each squared as ``|X|^2 / 4 + eps``. -> (..., N/2 + 1)."""
+    ``E = A + conj B``, ``O = A - conj B``: ``E - i W_N^f O``, twice bin f,
+    and ``E + i W_N^f O``, twice the conjugate of bin N/2 - f. -> those two,
+    each a (re, im) pair of (..., N/4 + 1)."""
     n = frames.shape[-1]
     h = n // 2
     table = fft_twiddles(n, frames.device)
@@ -366,9 +372,25 @@ def fft_power_plain(frames, window, eps=0.0):
     br, bi = zr[..., (h - f) % h], zi[..., (h - f) % h]
     er, ei = ar + br, ai - bi
     qr, qi = _cmul(ar - br, ai + bi, table[f, 0], table[f, 1])
-    lower, upper = [(xr * xr + xi * xi) * 0.25 + eps
-                    for xr, xi in ((er + qi, ei - qr), (er - qi, ei + qr))]
+    return (er + qi, ei - qr), (er - qi, ei + qr)
+
+
+def fft_power_plain(frames, window, eps=0.0):
+    """``|rfft(window * frame)|^2 + eps`` of (..., N) fp32 frames as K2's FFT
+    route computes it: each pair of :func:`_rfft_pairs` squared as ``|X|^2 /
+    4 + eps`` (bin N/4 taken from the first). -> (..., N/2 + 1)."""
+    lower, upper = [(xr * xr + xi * xi) * 0.25 + eps for xr, xi in _rfft_pairs(frames, window)]
     return torch.cat((lower, upper[..., :-1].flip(-1)), -1)
+
+
+def rfft_plain(frames, window):
+    """``rfft(window * frame)`` of (..., N) fp32 frames as K4's FFT route
+    computes it: the pairs of :func:`_rfft_pairs` halved, bin f from the
+    first and bin N/2 - f the conjugate of the second (bin N/4 taken from
+    the first). -> (re, im), each (..., N/2 + 1)."""
+    (lr, li), (ur, ui) = _rfft_pairs(frames, window)
+    return (torch.cat((lr * 0.5, ur[..., :-1].flip(-1) * 0.5), -1),
+            torch.cat((li * 0.5, ui[..., :-1].flip(-1) * -0.5), -1))
 
 
 def _edge_samples(re, im):
@@ -588,6 +610,16 @@ def gl_step_plain(x, wcos, wsin, S, p_re, p_im, hop, mom):
     return gl_update(re, im, S, p_re, p_im, mom)
 
 
+def gl_step_fft_plain(x, wcos, wsin, S, p_re, p_im, hop, mom):
+    """K4's FFT route in plain PyTorch, with the kernel's arithmetic:
+    :func:`rfft_plain` of each frame with the window ``wcos[0]``, then
+    :func:`gl_update`. It computes :func:`gl_step_plain` where ``(wcos,
+    wsin)`` is the Fourier basis of that window
+    (:func:`build_gl_step_fft_plan`); ``wsin`` is not read."""
+    re, im = rfft_plain(frame_signal(x.float(), wcos.shape[-1], hop), wcos[0])
+    return gl_update(re.transpose(1, 2), -im.transpose(1, 2), S, p_re, p_im, mom)
+
+
 def gl_step_3xtf32_plain(x, wcos, wsin, S, p_re, p_im, hop, mom):
     """K4 as the tensor-core kernel computes it in fp32 storage: the pair by
     :func:`framed_pair_3xtf32_plain`, then :func:`gl_update`."""
@@ -693,6 +725,10 @@ _SIGNATURES = {
         "framed_fft",
         [_VOID, _VOID] + [ctypes.c_longlong] * 3 + [_VOID] * 4 + [_INT] * 4 + [_VOID]),
     "nnaudio_synthesis_fft_twiddles": ("framed_fft", [_INT]),
+    "nnaudio_gl_step_fft": (
+        "framed_fft",
+        [_VOID] * 10 + [_INT] * 5 + [ctypes.c_float, _VOID]),
+    "nnaudio_gl_step_fft_twiddles": ("framed_fft", [_INT]),
 }
 #: the span of each C entry's launch
 _LAUNCH_SPANS = {"nnaudio_framed_magnitude": "nnaudio.launch.K1",
@@ -703,7 +739,8 @@ _LAUNCH_SPANS = {"nnaudio_framed_magnitude": "nnaudio.launch.K1",
                  "nnaudio_framed_magnitude_kchunk": "nnaudio.launch.K6",
                  "nnaudio_kchunk_ranges": "nnaudio.launch.K6",
                  "nnaudio_framed_filterbank_fft": "nnaudio.launch.K2",
-                 "nnaudio_synthesis_fft": "nnaudio.launch.K3"}
+                 "nnaudio_synthesis_fft": "nnaudio.launch.K3",
+                 "nnaudio_gl_step_fft": "nnaudio.launch.K4"}
 _fns: dict[str, object] = {}
 
 
@@ -999,16 +1036,31 @@ def _fourier_mismatch(wcos, wsin, window=None, weights=None):
     return off
 
 
-def _kernel_takes(n: int, m: int) -> bool:
-    """Whether ``csrc/framed_fft.cu`` runs frames of ``n`` samples onto
-    ``m`` rows: the kernel owns its block's shape and shared memory, and
-    says so with the length of the twiddle table it reads for ``n`` (0
-    where it cannot run), which has to be :func:`fft_twiddles`'s."""
-    length = _fn("nnaudio_framed_filterbank_fft_twiddles")(n, m)
+def _fft_kernel_takes(entry: str, n: int, *args) -> bool:
+    """Whether a kernel of ``csrc/framed_fft.cu`` runs frames of ``n``
+    samples: the kernel owns its block's shape and shared memory, and says
+    so with the length of the twiddle table it reads for ``n`` (0 where it
+    cannot run; ``entry`` is its query), which has to be
+    :func:`fft_twiddles`'s."""
+    length = _fn(entry)(n, *args)
     if length and length != fft_pass_offsets(n // 2)[-1]:
-        raise RuntimeError(f"framed_fft.cu reads {length} twiddles at n_fft {n}, "
+        raise RuntimeError(f"framed_fft.cu's {entry} reads {length} twiddles at n_fft {n}, "
                            f"fft_twiddles makes {fft_pass_offsets(n // 2)[-1]}")
     return length > 0
+
+
+def _kernel_takes(n: int, m: int) -> bool:
+    """Whether K2's FFT route projects frames of ``n`` samples onto ``m``
+    rows (:func:`_fft_kernel_takes`)."""
+    return _fft_kernel_takes("nnaudio_framed_filterbank_fft_twiddles", n, m)
+
+
+def _fourier_shape(wcos, wsin) -> bool:
+    """Whether ``(wcos, wsin)`` have the shape and type of an FFT route's
+    Fourier basis: fp32 (F, N), N a power of two in [64, 8192], F = N/2 + 1."""
+    f, n = wcos.shape
+    return (FFT_MIN_N <= n <= FFT_MAX_N and n & (n - 1) == 0 and f == n // 2 + 1
+            and wcos.dtype == wsin.dtype == torch.float32 and wsin.shape == wcos.shape)
 
 
 def build_fft_plan(wcos, wsin, fb) -> FFTPlan | None:
@@ -1019,10 +1071,8 @@ def build_fft_plan(wcos, wsin, fb) -> FFTPlan | None:
     the card, one that the kernel takes (:func:`_kernel_takes`). One
     synchronisation."""
     f, n = wcos.shape
-    if not (FFT_MIN_N <= n <= FFT_MAX_N and n & (n - 1) == 0 and f == n // 2 + 1
-            and wcos.dtype == wsin.dtype == torch.float32 and wsin.shape == wcos.shape
-            and fb.dtype in (torch.float32, torch.bfloat16) and fb.ndim == 2
-            and fb.shape[1] == f):
+    if not (_fourier_shape(wcos, wsin) and fb.dtype in (torch.float32, torch.bfloat16)
+            and fb.ndim == 2 and fb.shape[1] == f):
         return None
     if wcos.is_cuda and not _kernel_takes(n, fb.shape[0]):
         return None
@@ -1047,14 +1097,9 @@ class SynthesisFFTPlan(NamedTuple):
 
 
 def _synthesis_kernel_takes(n: int) -> bool:
-    """Whether ``csrc/framed_fft.cu``'s synthesis kernel runs frames of ``n``
-    samples: the length of the twiddle table it reads (0 where it cannot),
-    which has to be :func:`fft_twiddles`'s."""
-    length = _fn("nnaudio_synthesis_fft_twiddles")(n)
-    if length and length != fft_pass_offsets(n // 2)[-1]:
-        raise RuntimeError(f"framed_fft.cu's synthesis reads {length} twiddles at n_fft {n}, "
-                           f"fft_twiddles makes {fft_pass_offsets(n // 2)[-1]}")
-    return length > 0
+    """Whether K3's FFT route runs frames of ``n`` samples
+    (:func:`_fft_kernel_takes`)."""
+    return _fft_kernel_takes("nnaudio_synthesis_fft_twiddles", n)
 
 
 def build_synthesis_fft_plan(kernel_cos, kernel_sin, window, weighted) -> SynthesisFFTPlan | None:
@@ -1087,6 +1132,30 @@ def build_synthesis_fft_plan(kernel_cos, kernel_sin, window, weighted) -> Synthe
                             edge=synthesis_edge(n, dev))
 
 
+class GLStepFFTPlan(NamedTuple):
+    """What K4's FFT route reads besides the signal and the carries, made
+    once per basis: the window ``wcos[0]`` (N,) and the twiddle table
+    (:func:`fft_twiddles`)."""
+    window: torch.Tensor
+    twiddle: torch.Tensor
+
+
+def build_gl_step_fft_plan(wcos, wsin) -> GLStepFFTPlan | None:
+    """K4's FFT route's plan for ``(wcos, wsin)``, or None where they are
+    not its operands: fp32 bases (F, N), N a power of two in [64, 8192], F =
+    N/2 + 1, that are the Fourier basis of the window ``wcos[0]``
+    (:func:`_fourier_mismatch`); on the card, an N that the kernel takes
+    (:func:`_fft_kernel_takes`). One synchronisation."""
+    if not _fourier_shape(wcos, wsin):
+        return None
+    n = wcos.shape[1]
+    if wcos.is_cuda and not _fft_kernel_takes("nnaudio_gl_step_fft_twiddles", n):
+        return None
+    if _fourier_mismatch(wcos, wsin).item():
+        return None
+    return GLStepFFTPlan(window=wcos[0].detach().clone(), twiddle=fft_twiddles(n, wcos.device))
+
+
 # ------------------------------------------------------------ the routes --
 class _Own:
     """The mark of a transform's own tensor (:func:`mark_own`): the FFT plans
@@ -1116,25 +1185,27 @@ def mark_own(*tensors) -> None:
         if key not in _OWN:
             own = _OWN[key] = _Own()
             own.plans = {}
-            own.ref = weakref.ref(t, lambda _, key=key: _OWN.pop(key, None))
+            own.ref = weakref.ref(t, lambda _, key=key, marks=_OWN: marks.pop(key, None))
 
 
-def _kept(build, a, b, c, *args):
-    """``build(a, b, c, *args)`` for three marked operands as they are now,
-    kept on ``a``'s mark: made at the first call (one comparison in float64,
-    one synchronisation) and again only after an operand was replaced or
-    changed in place (its version, which ``update_params``,
+def _kept(build, operands, *args):
+    """``build(*operands, *args)`` for marked operands as they are now, kept
+    on the first one's mark: made at the first call (one comparison in
+    float64, one synchronisation) and again only after an operand was
+    replaced or changed in place (its version, which ``update_params``,
     ``load_state_dict`` and in-place ops bump; a write through ``.data``
     bumps none: make it in place under ``torch.no_grad()``). The plan holds
     none of the operands. None where an operand is not marked."""
-    own, mb, mc = _OWN.get(id(a)), _OWN.get(id(b)), _OWN.get(id(c))
-    if own is None or mb is None or mc is None:
-        return None
-    stamp = (mb, mc, a._version, b._version, c._version,
-             a.data_ptr(), b.data_ptr(), c.data_ptr(), *args)
+    own, stamp = None, args
+    for t in operands:
+        mark = _OWN.get(id(t))
+        if mark is None:
+            return None
+        own = own or mark
+        stamp += (mark, t._version, t.data_ptr())
     kept = own.plans.get(build)
     if kept is None or kept[0] != stamp:
-        kept = own.plans[build] = (stamp, build(a, b, c, *args))
+        kept = own.plans[build] = (stamp, build(*operands, *args))
     return kept[1]
 
 
@@ -1145,7 +1216,7 @@ def fft_plan(wcos, wsin, fb) -> FFTPlan | None:
     and bf16 storage take dense K2 unchecked."""
     if storage_dtype() != torch.float32 or wcos.requires_grad or wsin.requires_grad:
         return None
-    return _kept(build_fft_plan, wcos, wsin, fb)
+    return _kept(build_fft_plan, (wcos, wsin, fb))
 
 
 def hermitian_weights(n_fft: int, n_bins: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -1195,7 +1266,19 @@ def synthesis_fft_plan(kc, ks) -> SynthesisFFTPlan | None:
     kernel_cos, kernel_sin, window, weighted = factors
     if kernel_cos.requires_grad or kernel_sin.requires_grad or window.requires_grad:
         return None
-    return _kept(build_synthesis_fft_plan, kernel_cos, kernel_sin, window, weighted)
+    return _kept(build_synthesis_fft_plan, (kernel_cos, kernel_sin, window), weighted)
+
+
+def gl_step_fft_plan(wcos, wsin, p_re, p_im) -> GLStepFFTPlan | None:
+    """K4's FFT route for these operands: the plan of the basis
+    (:func:`build_gl_step_fft_plan`, kept as :func:`_kept` keeps it), or
+    None, which leaves the step to the tensor-core K4 or the pair
+    (:func:`gl_step`). A basis not marked (:func:`mark_own`) or that requires
+    grad, bf16 storage and bf16 carries take another route unchecked."""
+    if (storage_dtype() != torch.float32 or p_re.dtype != torch.float32
+            or p_im.dtype != torch.float32 or wcos.requires_grad or wsin.requires_grad):
+        return None
+    return _kept(build_gl_step_fft_plan, (wcos, wsin))
 
 
 def _launch_filterbank_fft(x, wcos, wsin, fb, hop, eps, plan):
@@ -1235,22 +1318,49 @@ def _launch_pair(x, wcos, wsin, hop):
 
 
 def _launch_gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom):
-    with span("nnaudio.wrap.K4"):
-        xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
-        b, _, _, _, f, t = dims
-        dev, shape, carry = xs.device, (b, f, t), p_re.dtype
-        mag = _carry(S, "S", shape, torch.float32, dev)
-        pr = _carry(p_re, "p_re", shape, carry, dev)
-        pi = _carry(p_im, "p_im", shape, carry, dev)
-        outs = [torch.empty(shape, dtype=carry, device=dev) for _ in range(4)]
-        with torch.cuda.device(dev):
-            _run("nnaudio_gl_step", xs.data_ptr(), wc.data_ptr(), ws.data_ptr(),
-                 mag.data_ptr(), pr.data_ptr(), pi.data_ptr(),
-                 *(o.data_ptr() for o in outs), *dims, float(mom),
-                 int(xs.dtype == torch.bfloat16), int(carry == torch.bfloat16),
-                 _stream())
-        LAUNCHES["gl_step"] += 1
-        return tuple(outs)
+    """Dense K4, inside the wrapper's span (:func:`gl_step`), in either carry
+    type."""
+    xs, wc, ws, dims = _analysis_operands(x, wcos, wsin, hop)
+    b, _, _, _, f, t = dims
+    dev, shape, carry = xs.device, (b, f, t), p_re.dtype
+    mag = _carry(S, "S", shape, torch.float32, dev)
+    pr = _carry(p_re, "p_re", shape, carry, dev)
+    pi = _carry(p_im, "p_im", shape, carry, dev)
+    outs = [torch.empty(shape, dtype=carry, device=dev) for _ in range(4)]
+    with torch.cuda.device(dev):
+        _run("nnaudio_gl_step", xs.data_ptr(), wc.data_ptr(), ws.data_ptr(),
+             mag.data_ptr(), pr.data_ptr(), pi.data_ptr(),
+             *(o.data_ptr() for o in outs), *dims, float(mom),
+             int(xs.dtype == torch.bfloat16), int(carry == torch.bfloat16),
+             _stream())
+    LAUNCHES["gl_step"] += 1
+    return tuple(outs)
+
+
+def _launch_gl_step_fft(x, wcos, wsin, S, p_re, p_im, hop, mom, plan):
+    """K4's FFT route, inside the wrapper's span: the basis read from
+    ``plan``, fp32 carries."""
+    _check_cuda(x)
+    dev = plan.window.device
+    xs = _operand(x, "x", 2, dev)
+    if hop < 1:
+        raise ValueError(f"hop must be >= 1, got {hop}")
+    b, length = xs.shape
+    n = plan.window.shape[0]
+    t = num_frames(length, n, hop)
+    if t < 1:
+        raise ValueError(f"signal of {length} samples is shorter than n_fft={n}")
+    shape = (b, n // 2 + 1, t)
+    mag = _carry(S, "S", shape, torch.float32, dev)
+    pr = _carry(p_re, "p_re", shape, torch.float32, dev)
+    pi = _carry(p_im, "p_im", shape, torch.float32, dev)
+    outs = [torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(4)]
+    with torch.cuda.device(dev):
+        _run("nnaudio_gl_step_fft", xs.data_ptr(), plan.window.data_ptr(),
+             plan.twiddle.data_ptr(), mag.data_ptr(), pr.data_ptr(), pi.data_ptr(),
+             *(o.data_ptr() for o in outs), b, length, n, hop, t, float(mom), _stream())
+    LAUNCHES["gl_step_fft"] += 1
+    return tuple(outs)
 
 
 def _launch_synthesis(spec_re, spec_im, kc, ks, hop):
@@ -1363,9 +1473,13 @@ class _Pair(torch.autograd.Function):
 
 
 class _GLStep(torch.autograd.Function):
+    """Dense K4, or its FFT route where a plan is given."""
+
     @staticmethod
-    def forward(ctx, x, wcos, wsin, S, p_re, p_im, hop, mom):
-        return _launch_gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom)
+    def forward(ctx, x, wcos, wsin, S, p_re, p_im, hop, mom, plan):
+        if plan is None:
+            return _launch_gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom)
+        return _launch_gl_step_fft(x, wcos, wsin, S, p_re, p_im, hop, mom, plan)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -1452,7 +1566,25 @@ def framed_pair(x, wcos, wsin, hop):
 
 def gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom):
     """K4: one Griffin-Lim analysis step -> ``(c_re, c_im, r_re, r_im)``,
-    each (B, F, T) in the carry type of ``p_re`` (float32 or bfloat16)."""
+    each (B, F, T) in the carry type of ``p_re`` (float32 or bfloat16). The
+    FFT route (``csrc/framed_fft.cu``) where :func:`gl_step_fft_plan` has a
+    plan for the basis (fp32 carries) and the call is not differentiated;
+    the tensor-core K4 for bf16 carries outside ``tensorfloat32``, the steps
+    that the JAX package's loop fuses; else the pair (K5), then
+    :func:`gl_update`, whose autograd carries gradients back to ``S``, the
+    carries and the signal, as the JAX package's fp32 loop does. Neither
+    kernel has a backward. The tensor-core K4's fp32-carry variant is
+    reached by no route here: fp32 carries take the FFT route or the pair."""
     if not _on_card(x):
         return gl_step_plain(x, wcos, wsin, S, p_re, p_im, hop, mom)
-    return _GLStep.apply(x, wcos, wsin, S, p_re, p_im, hop, mom)
+    with span("nnaudio.wrap.K4"):
+        plan = (None if _differentiated(x, S, p_re, p_im)
+                else gl_step_fft_plan(wcos, wsin, p_re, p_im))
+        if plan is not None:
+            note_route("K4.fft")
+            return _GLStep.apply(x, wcos, wsin, S, p_re, p_im, hop, mom, plan)
+        if p_re.dtype == torch.bfloat16 and get_config().matmul_precision != "tensorfloat32":
+            note_route("K4.dense")
+            return _GLStep.apply(x, wcos, wsin, S, p_re, p_im, hop, mom, None)
+        note_route("K4.pair")
+    return gl_update(*framed_pair(x, wcos, wsin, hop), S, p_re, p_im, mom)

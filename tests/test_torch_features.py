@@ -176,14 +176,15 @@ MOVED_KW = dict(sr=8000, n_fft=256, hop_length=64, verbose=False, device="cpu")
     ("MFCC", {"framed_filterbank_fft": 1}),
     ("Gammatonegram", {"framed_filterbank_fft": 1}),
     ("ChromaSTFT", {"framed_filterbank_fft": 1}),
-    ("InverseMelSpectrogram", {"synthesis_ola_fft": 3, "framed_pair": 2}),
+    ("InverseMelSpectrogram", {"synthesis_ola_fft": 3, "gl_step_fft": 2}),
 ])
 def test_a_moved_transform_keeps_its_fft_route(kernel_route, name, launches):
     """``Module.to(device)`` puts a new tensor in place of each of a
     transform's own (``m._apply(lambda t: t.clone())`` does what ``.to``
     does to each one). The transforms that keep an inner one apart from
     their state (an STFT, a Griffin-Lim) read the new tensors, which are
-    still their own: K2's and K3's FFT routes stay, on the same values."""
+    still their own: K2's, K3's and K4's FFT routes stay, on the same
+    values."""
     if name == "InverseMelSpectrogram":
         layer = tf.InverseMelSpectrogram(n_mels=16, n_iter=2, n_iter_nnls=4,
                                          iter_precision="highest", **MOVED_KW)

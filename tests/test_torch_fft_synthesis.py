@@ -86,6 +86,7 @@ def _kernel_route():
         mp.setattr(fk, "_on_card", lambda t: True)
         mp.setattr(fk, "_launch_pair", fk.framed_pair_plain)
         mp.setattr(fk, "_launch_gl_step", fk.gl_step_plain)
+        mp.setattr(fk, "_launch_gl_step_fft", lambda *args: fk.gl_step_fft_plain(*args[:-1]))
         mp.setattr(fk, "_launch_synthesis", count("synthesis_ola", fk.synthesis_ola_plain))
         mp.setattr(fk, "_launch_synthesis_fft", count(
             "synthesis_ola_fft",

@@ -137,7 +137,7 @@ def test_default_power_is_one_filterbank_launch(kernel_route, cls, key):
     assert kernel_route == {"framed_magnitude": 0, "framed_magnitude_kchunk": 0,
                             "framed_filterbank": 0, "framed_pair": 0,
                             "synthesis_ola": 0, "framed_filterbank_fft": 1,
-                            "synthesis_ola_fft": 0}
+                            "synthesis_ola_fft": 0, "gl_step_fft": 0}
 
 
 @pytest.mark.parametrize("route", ["plain", "kernel"])

@@ -379,8 +379,10 @@ def test_the_fft_routes_istft_matches_jax(kernel_route, n_fft, hop):
 
 @pytest.mark.parametrize("center", [True, False])
 def test_griffin_lim_on_the_fft_route_matches_jax(kernel_route, center):
-    """fp32 Griffin-Lim with every synthesis on K3's FFT route (its plain
-    mirror) against JAX's loop, at the loop's fp32 tolerance."""
+    """fp32 Griffin-Lim with every synthesis on K3's FFT route and every
+    analysis step on K4's (their plain mirrors) against JAX's loop, at the
+    loop's fp32 tolerance: n_iter steps on K4's route, no pair."""
     _, _, got, want = _gl_pair(2, center, "highest")
     assert kernel_route["synthesis_ola_fft"] == 3 and kernel_route["synthesis_ola"] == 0
+    assert kernel_route["gl_step_fft"] == 2 and kernel_route["framed_pair"] == 0
     assert _rel_err(got, want) < GL_TOL["highest"]

@@ -68,7 +68,7 @@ def test_gl_step_matches_plain_version(cuda, mode, carry, n_fft, hop, f):
     p_re = torch.randn(shape, generator=g, device=cuda).to(carry)
     p_im = torch.randn(shape, generator=g, device=cuda).to(carry)
     before = fk.LAUNCHES["gl_step"]
-    got = fk.gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)
+    got = fk._launch_gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)  # the tensor-core K4
     torch.cuda.synchronize()
     assert fk.LAUNCHES["gl_step"] == before + 1
     assert all(o.dtype == carry and o.shape == shape for o in got)
@@ -305,14 +305,14 @@ def test_filterbank_and_gl_step_on_the_tensor_cores_twice(cuda, mode, length, n,
     for carry in (torch.float32, torch.bfloat16):
         p_re = torch.randn(shape, generator=g, device=cuda).to(carry)
         p_im = torch.randn(shape, generator=g, device=cuda).to(carry)
-        got = fk.gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)
+        got = fk._launch_gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)
         torch.cuda.synchronize()
         tol = max(TOL[mode], CARRY_TOL[carry])
         r_err, c_err, mag_err, _, _ = gl_step_errors(fk, got, x, wc, ws, S, p_re,
                                                      p_im, hop, MOM)
         assert r_err <= tol and c_err <= tol, (r_err, c_err)
         assert mag_err <= MAG_TOL[carry], mag_err
-        for a, b in zip(got, fk.gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)):
+        for a, b in zip(got, fk._launch_gl_step(x, wc, ws, S, p_re, p_im, hop, MOM)):
             assert torch.equal(a, b)
 
 
@@ -420,7 +420,9 @@ def test_only_the_gl_step_backward_raises(cuda):
     x = torch.randn(1, 4096, device=cuda)
     w = torch.randn(65, 512, device=cuda, requires_grad=True)
     t = num_frames(4096, 512, 64)
-    S, p_re, p_im = (torch.rand(1, 65, t, device=cuda) for _ in range(3))
+    S = torch.rand(1, 65, t, device=cuda)
+    # bf16 carries: the tensor-core K4 (fp32 carries would take the pair)
+    p_re, p_im = (torch.rand(1, 65, t, device=cuda).bfloat16() for _ in range(2))
     out = fk.gl_step(x, w, w, S, p_re, p_im, 64, MOM)[0]
     with pytest.raises(NotImplementedError, match="no gradient"):
         out.sum().backward()

@@ -190,7 +190,7 @@ def test_time_stretch_launches(kernel_route):
     assert kernel_route == {"framed_magnitude": 0, "framed_magnitude_kchunk": 0,
                             "framed_filterbank": 0, "framed_pair": 1,
                             "synthesis_ola": 0, "framed_filterbank_fft": 0,
-                            "synthesis_ola_fft": 1}
+                            "synthesis_ola_fft": 1, "gl_step_fft": 0}
 
 
 # --------------------------------------------------------------- resample --

@@ -54,7 +54,7 @@ def kernel_route(monkeypatch):
     kernel, counted as the wrappers count theirs."""
     calls = {k: 0 for k in ("framed_magnitude", "framed_magnitude_kchunk",
                             "framed_filterbank", "framed_pair", "synthesis_ola",
-                            "framed_filterbank_fft", "synthesis_ola_fft")}
+                            "framed_filterbank_fft", "synthesis_ola_fft", "gl_step_fft")}
 
     def launch(name, plain):
         def run(*args):
@@ -80,6 +80,8 @@ def kernel_route(monkeypatch):
     monkeypatch.setattr(fk, "_launch_synthesis_fft", launch(
         "synthesis_ola_fft",
         lambda sre, sim, hop, plan: fk.synthesis_ola_fft_plain(sre, sim, plan.scale, hop)))
+    monkeypatch.setattr(fk, "_launch_gl_step_fft", launch(
+        "gl_step_fft", lambda *args: fk.gl_step_fft_plain(*args[:-1])))
     return calls
 
 
