@@ -173,6 +173,7 @@ PHASE_SEEDS = {"3 kernels": 301, "3 tensor cores": 302, "3 K6": 303, "3 K3": 304
                "a highest": 401, "a default": 402, "b highest": 403, "b default": 404,
                "d": 405, "g": 406, "j-l": 407, "b grad, d step": 408, "m": 409,
                "o": 410, "p": 411, "q": 412, "s": 413, "t": 414, "u": 415,
+               "w highest": 416, "w default": 417,
                "5 highest": 501, "5 default": 502, "sweep": 503}
 # the pyramid inverses' config (tests/test_inverse_cqt.py:176-236): hop 128 is
 # at most half the shortest atom, where the inverse is good
@@ -469,8 +470,8 @@ def main() -> int:
                                             ChromaSTFT, Combined_Frequency_Periodicity,
                                             Gammatonegram, Griffin_Lim, GriffinLimCQT,
                                             InverseMelSpectrogram, MelSpectrogram,
-                                            PitchShift, STFT, TimeStretch, VQT, iSTFT,
-                                            phase_vocoder, resample)
+                                            PitchShift, STFT, TimeStretch, VQT,
+                                            WhisperLogMel, iSTFT, phase_vocoder, resample)
     from nnaudio_tpu_torch.models import SpectrogramClassifier
     from nnaudio_tpu_torch.ops import build, dispatch as td, framed_kernels as fk
 
@@ -531,7 +532,8 @@ def main() -> int:
     # ---------------------------------------- 3. kernels vs plain versions --
     # (B, L, n_fft, hop, F, M): the slice shapes first, then odd hops, bin
     # counts that are no multiple of a tile, 64 / 128 / 256 mels, and for K2
-    # and K4 one bin and one mel, fewer frames than a tile, and 300 mels
+    # and K4 one bin and one mel, fewer frames than a tile, and 300 mels;
+    # last Whisper's n_fft 400 on a Fourier basis, K2's mixed-radix route
     cases = [
         ("slice (b)", 32, 220500 + 2048, 2048, 512, None, 128),
         ("slice (a)", 32, 160000 + 1024, 1024, 256, None, 64),
@@ -542,6 +544,7 @@ def main() -> int:
         ("F 1, M 1", 2, 30000, 2048, 512, 1, 1),
         ("T 3, M 40", 2, 2048 + 2 * 512, 2048, 512, None, 40),
         ("M 300, hop 3", 2, 4000, 400, 3, 201, 300),
+        ("n_fft 400, hop 160", 4, 48000, 400, 160, None, 128),
     ]
     # fp32 storage (and carries), at the slice shapes
     max_abs = {k: 0.0 for k in fk.LAUNCHES}
@@ -1109,6 +1112,22 @@ def main() -> int:
         log(f"[serve] (b) {mode}: {ms_b:.3f} ms per batch = "
             f"{batch * secs / (ms_b / 1e3):.1f} audio-s/s; (c) {ms_c:.3f} ms = "
             f"{batch * secs / (ms_c / 1e3):.1f} audio-s/s")
+
+        # (w) Whisper large-v3's front end on 32 x 30 s windows: in fp32 one
+        # launch of K2's mixed-radix FFT route at n_fft 400 and no dense K2;
+        # in bf16 dense K2
+        gen = phase_gen(f"w {mode}")
+        xw = randn(batch, 480000)
+        whisper = WhisperLogMel(device=dev)
+        with torch.no_grad():
+            whisper(xw)  # warm-up outside the counted run
+            drive(f"(w) WhisperLogMel {mode}", lambda: whisper(xw), (batch, 128, 3000),
+                  expect={k2_route(mode): 1})
+            ms_w = cuda_ms(lambda: whisper(xw))
+        results[f"w_{mode}_audio_s_per_s"] = batch * 30 / (ms_w / 1e3)
+        log(f"[serve] (w) {mode}: {ms_w:.3f} ms per batch = "
+            f"{batch * 30 / (ms_w / 1e3):.1f} audio-s/s")
+        del xw, whisper
     config.set_matmul_precision("highest")
 
     # (d) iSTFT and STFT.inverse round trips of (b)'s Complex output
@@ -2239,6 +2258,29 @@ def main() -> int:
                     bytes=4 * (b * length + 128 * b * t),
                     shape=f"B={b} L={length} n_fft={n} hop=512 F={f} T={t} M=128, "
                           f"{nnz_c} nonzero")
+                # and its mixed-radix kernel at Whisper large-v3's call (B=32
+                # 30 s windows, n_fft 400, hop 160, 128 mels): the held Mel's
+                # own basis, the padded signal in and the (B, M, T) mel out;
+                # dense K2 on the same operands beside it
+                mel_w = WhisperLogMel(device=dev).melspec_layer
+                wc_w, ws_w, fb_w = mel_w.wcos, mel_w.wsin, mel_w.mel_basis
+                x_w = F.pad(randn(batch, 480000)[:, None], (200, 200), mode="reflect")[:, 0]
+                nnz_w, t_w = int((fb_w != 0).sum()), 3001
+                rows["framed_filterbank_fft N=400"] = dict(
+                    ms=kernel_ms(lambda: fk.framed_filterbank(x_w, wc_w, ws_w, fb_w, 160)),
+                    dense_ms=kernel_ms(lambda: dense_k2(x_w, wc_w, ws_w, fb_w, 160)),
+                    plain_ms=kernel_ms(lambda: fk.framed_filterbank_fft_plain(
+                        x_w, wc_w, ws_w, fb_w, 160)),
+                    library_ms=kernel_ms(lambda: fb_w @ stft_lib(
+                        x_w, 400, 160, torch.hann_window(400, device=dev)).abs() ** 2),
+                    library="fb @ torch.stft().abs() ** 2",
+                    flops=batch * t_w * fft_frame_flops(400, nnz_w),
+                    bytes=4 * (x_w.numel() + 128 * batch * t_w),
+                    shape=f"B={batch} L={x_w.shape[1]} n_fft=400 hop=160 F=201 T={t_w} "
+                          f"M=128, {nnz_w} nonzero")
+                log(f"[time] highest  framed_filterbank_fft N=400: dense K2 on the same "
+                    f"operands {rows['framed_filterbank_fft N=400']['dense_ms']:.3f} ms")
+                del x_w
             # K3 at (d): synthesis 2048/512, B=32, T=431, F=1025; and at (e):
             # mel -> audio's 1024/256, T=862, F=513
             def fold_lib(sre, sim, kc, ks, hop):

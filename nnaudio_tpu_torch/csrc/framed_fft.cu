@@ -12,7 +12,8 @@
 // every entry once per basis), this kernel computes
 //   out[b,m,t] = sum_f fb[m,f] * (|rfft(w * x[b, t*hop : t*hop + N])[f]|^2 + eps)
 // for fp32 storage and N a power of two in [64, 8192], with no (B, F, T)
-// tensor, no workspace and no second kernel. Any other basis keeps the dense
+// tensor, no workspace and no second kernel; N = 2^a 5^b there takes the
+// mixed-radix kernel further down. Any other basis keeps the dense
 // tensor-core K2 (framed_tc.cu FILTERBANK).
 //
 // What bounds it on the H100 (67 TFLOP/s fp32 on the CUDA cores, 3.35 TB/s
@@ -460,10 +461,384 @@ int launch(const float* x, const float* window, const float2* twiddle, const int
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// K2's FFT route at a mixed-radix N: N = 2^a 5^b with a >= 2 and b >= 1 in
+// [64, 8192] (Whisper's 400 = 2^4 5^2 among them), the same function as the
+// kernel above: the exact DFT of each windowed frame (no zero-padding), its
+// power and the banded projection, one write to (B, M, T).
+//
+// What bounds it: at Whisper's front end (B=32, 30 s at 16 kHz, T=3,001,
+// N=400, M=128, 394 nonzero filterbank entries) the signal read once and the
+// output written once are 110.6 MB, 33 us at 3.35 TB/s; a frame's FFT, unpack
+// and projection are ~10 k operations, ~1 GFLOP a call, 15 us on the CUDA
+// cores. Neither is reached (~0.28 ms, timed on an H100): a frame crosses
+// shared memory once a pass, and the instructions that load, index and store
+// its points, ~1,100 a frame for a warp, outnumber its arithmetic. Builds
+// with N a template parameter (each pass's constants known) were ~8% faster
+// and took twice as long to compile; reading the next frame ahead during the
+// projection, or into L2, and blocks of 4 or 8 frames were no faster.
+//
+// Design, beside the power-of-two kernel's (its loader's windowing, its
+// unpack, its projection order and its output tile are repeated):
+// - One frame to a warp, C warps (frames in flight) a block, C a power of two
+//   in [2, 16] chosen at launch from the shared memory the frames take. The
+//   warp's lanes take the butterflies j = lane + 32 q of each pass, so every
+//   N of the family runs in one compiled kernel with its passes read from the
+//   launch's arguments (MixedPasses): Stockham passes of radix 16, 8, 4 or 2
+//   (the 2^a part, in as few passes as radix 16 allows, the larger first)
+//   then of radix 5, each butterfly's points in registers, turned by the
+//   pass's twiddles (the power-of-two table's layout), their DFT (the
+//   power-of-two kernel's dft, or dft5 below) written to the frame's other
+//   buffer: two buffers a frame, each padded after every 16 points.
+// - The first pass reads the frame from device memory, windowed on the way;
+//   after the last, the pairs of bins f and N/2 - f are unpacked and squared
+//   into the frame's other buffer; the block projects its C frames' power
+//   onto the bands as the power-of-two kernel does (two frames a thread, four
+//   partial sums by index mod 4), into the output tile.
+// - Fixed summation order, no atomics: every run gives the same bits, and a
+//   frame's arithmetic does not depend on B, T or a stream's split.
+// ops/framed_kernels.py's framed_filterbank_fft_plain repeats the radix
+// order and this arithmetic in PyTorch (fft_radices, _fft_stockham).
+
+namespace {
+
+constexpr int MAX_PASSES = 8;    // passes of an FFT of the family, at most
+constexpr int MIXED_WARPS = 16;  // frames in flight in a block, at most
+
+// The passes of an h-point complex FFT (ops/framed_kernels.py's
+// fft_radices): pass s's radix less one in bits [4s, 4s + 4) of radices.
+// Pass s's twiddles start where the earlier passes' end (fft_pass_offsets):
+// after the unpacking's h + 1, ns (R - 1) for each earlier pass with ns > 1
+// points already combined; length is the table's.
+struct MixedPasses {
+  int h, count, length;
+  unsigned radices;
+};
+
+__host__ __device__ __forceinline__ int radix_of(const MixedPasses& pl, int s) {
+  return static_cast<int>((pl.radices >> (4 * s)) & 15u) + 1;
+}
+
+bool mixed_passes(int n, MixedPasses& pl) {
+  if (n < 64 || n > 8192 || n % 4) return false;
+  int rest = n / 2, a = 0, b = 0;
+  while (rest % 2 == 0) rest /= 2, ++a;
+  while (rest % 5 == 0) rest /= 5, ++b;
+  const int parts = (a + 3) / 4;
+  if (rest != 1 || b == 0 || parts + b > MAX_PASSES) return false;
+  pl.h = n / 2;
+  pl.count = parts + b;
+  pl.radices = 0;
+  for (int s = 0; s < pl.count; ++s) {
+    const int r = s < parts ? 1 << (a / parts + (s < a % parts)) : 5;
+    pl.radices |= static_cast<unsigned>(r - 1) << (4 * s);
+  }
+  pl.length = pl.h + 1;
+  for (int s = 1, ns = radix_of(pl, 0); s < pl.count; ns *= radix_of(pl, s), ++s)
+    pl.length += ns * (radix_of(pl, s) - 1);
+  return true;
+}
+
+// float2 of a frame's buffer: h points, a pad after every 16
+__host__ __device__ constexpr int mixed_stride(int h) { return h + h / 16 + 1; }
+
+// Shared memory of a mixed-radix block of c frames in flight: the
+// destination offsets of its RUN frames, two buffers a frame, the output
+// tile, the bands' ranges and (vals > 0) the bands' entries.
+size_t mixed_smem_bytes(int h, int c, int m, int vals) {
+  return 8 * RUN + 16 * static_cast<size_t>(c) * mixed_stride(h) +
+         4 * static_cast<size_t>(m) * RUN + 4 * (2 * static_cast<size_t>(m) + 1) +
+         4 * static_cast<size_t>(vals);
+}
+
+__host__ __device__ constexpr int rev_bits(int q, int bits) {
+  return bits ? ((q & 1) << (bits - 1)) | rev_bits(q >> 1, bits - 1) : 0;
+}
+
+// cos(2 pi / 5), cos(4 pi / 5), sin(2 pi / 5), sin(4 pi / 5), each rounded
+// once from float64 (tests/test_torch_fft_filterbank.py holds them equal to
+// the mirror's)
+constexpr float C5_1 = 0x1.3c6ef4p-2f, C5_2 = -0x1.9e377ap-1f;
+constexpr float S5_1 = 0x1.e6f0e2p-1f, S5_2 = 0x1.2cf23p-1f;
+
+// 5 points -> their DFT, in natural order
+__device__ __forceinline__ void dft5(float2 (&v)[5]) {
+  const float2 t1 = make_float2(v[1].x + v[4].x, v[1].y + v[4].y);
+  const float2 t2 = make_float2(v[2].x + v[3].x, v[2].y + v[3].y);
+  const float2 t3 = make_float2(v[1].x - v[4].x, v[1].y - v[4].y);
+  const float2 t4 = make_float2(v[2].x - v[3].x, v[2].y - v[3].y);
+  const float2 a1 = make_float2(v[0].x + C5_1 * t1.x + C5_2 * t2.x,
+                                v[0].y + C5_1 * t1.y + C5_2 * t2.y);
+  const float2 a2 = make_float2(v[0].x + C5_2 * t1.x + C5_1 * t2.x,
+                                v[0].y + C5_2 * t1.y + C5_1 * t2.y);
+  const float2 b1 = make_float2(S5_1 * t3.x + S5_2 * t4.x, S5_1 * t3.y + S5_2 * t4.y);
+  const float2 b2 = make_float2(S5_2 * t3.x - S5_1 * t4.x, S5_2 * t3.y - S5_1 * t4.y);
+  v[0] = make_float2(v[0].x + t1.x + t2.x, v[0].y + t1.y + t2.y);
+  v[1] = make_float2(a1.x + b1.y, a1.y - b1.x);
+  v[4] = make_float2(a1.x - b1.y, a1.y + b1.x);
+  v[2] = make_float2(a2.x + b2.y, a2.y - b2.x);
+  v[3] = make_float2(a2.x - b2.y, a2.y + b2.x);
+}
+
+// R points -> their DFT, in natural order: dft5, or the power-of-two
+// kernel's dft with its outputs renamed out of bit-reversed order
+template <int R>
+__device__ __forceinline__ void dft_natural(float2 (&v)[R]) {
+  if constexpr (R == 5) {
+    dft5(v);
+  } else {
+    dft<R>(v);
+    float2 o[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) o[q] = v[rev_bits(q, ilog2(R))];
+#pragma unroll
+    for (int q = 0; q < R; ++q) v[q] = o[q];
+  }
+}
+
+// The first pass, radix R: butterfly j reads points j + r h/R of the frame
+// at a (zeros past the frames), windowed, and writes its DFT to points
+// j R + q of z.
+template <int R>
+__device__ __forceinline__ void mixed_first(const float* a, bool inside, bool paired,
+                                            const float* __restrict__ window, float2* z, int h,
+                                            int lane) {
+  const int m = h / R;
+  for (int j = lane; j < m; j += 32) {
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = j + r * m;
+      const float* c = a + 2 * i;
+      const float2 w = __ldg(reinterpret_cast<const float2*>(window) + i);
+      const float2 s = !inside ? make_float2(0.f, 0.f)
+                     : paired  ? __ldg(reinterpret_cast<const float2*>(c))
+                               : make_float2(__ldg(c), __ldg(c + 1));
+      v[r] = make_float2(s.x * w.x, s.y * w.y);
+    }
+    dft_natural<R>(v);
+#pragma unroll
+    for (int q = 0; q < R; ++q) z[pad16(j * R + q)] = v[q];
+  }
+}
+
+// A pass after the first, radix R, with ns points already combined:
+// butterfly j (k = j mod ns) reads points j + r h/R of src, turns point r by
+// W_(ns R)^(r k) (the table's (r - 1) ns + k of the pass), and writes its
+// DFT's output q to (j - k) R + k + q ns of dst.
+template <int R>
+__device__ __forceinline__ void mixed_pass(const float2* src, float2* dst, int h, int ns,
+                                           const float2* __restrict__ tw, int lane) {
+  const int m = h / R;
+  for (int j = lane; j < m; j += 32) {
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = src[pad16(j + r * m)];
+    const int k = j % ns;
+#pragma unroll
+    for (int r = 1; r < R; ++r) v[r] = cmul(v[r], __ldg(tw + (r - 1) * ns + k));
+    dft_natural<R>(v);
+    const int base = (j - k) * R + k;
+#pragma unroll
+    for (int q = 0; q < R; ++q) dst[pad16(base + q * ns)] = v[q];
+  }
+}
+
+// A round's C frames, their power at pw (frame i at pw + i fstride floats),
+// projected onto the bands into the tile as the power-of-two kernel's
+// project does, two frames a thread.
+__device__ __forceinline__ void project_mixed(const float* pw, int fstride, const int* bands,
+                                              const float* fbv, float* tile, int M, int fpb,
+                                              int round, int c) {
+  const int groups = c / 2;
+  for (int o = threadIdx.x; o < groups * M; o += blockDim.x) {
+    const int m = o / groups, i0 = (o % groups) * 2;
+    const float* power = pw + i0 * fstride + bands[m];
+    const int e0 = bands[M + m], n = bands[M + m + 1] - e0;
+    const float* fv = fbv + e0;
+    float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+    int e = 0;
+    for (; e + 4 <= n; e += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float a = fv[e + u];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) acc[u][k] = fmaf(a, power[k * fstride + e + u], acc[u][k]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      if (e + u < n) {
+        const float a = fv[e + u];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) acc[u][k] = fmaf(a, power[k * fstride + e + u], acc[u][k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      tile[m * fpb + round * c + i0 + k] = (acc[0][k] + acc[1][k]) + (acc[2][k] + acc[3][k]);
+  }
+}
+
+// 1,024 threads an SM: 64 registers a thread
+__global__ void __launch_bounds__(32 * MIXED_WARPS, 32 / MIXED_WARPS)
+framed_fft_filterbank_mixed_kernel(const float* __restrict__ x, const float* __restrict__ window,
+                                   const float2* __restrict__ twiddle,
+                                   const int* __restrict__ band, const float* __restrict__ vals,
+                                   float* __restrict__ out, int L, int hop, int T, int M, int nnz,
+                                   int frames, int rounds, float eps, MixedPasses pl) {
+  const int c = blockDim.x >> 5, h = pl.h, hs = mixed_stride(h);
+  const int fpb = c * rounds;
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long* dst = reinterpret_cast<long long*>(smem);         // RUN
+  float2* buf = reinterpret_cast<float2*>(dst + RUN);          // C frames of two buffers
+  float* tile = reinterpret_cast<float*>(buf + 2 * c * hs);    // M rows of RUN
+  int* bands = reinterpret_cast<int*>(tile + M * RUN);         // 2M + 1
+  float* svals = reinterpret_cast<float*>(bands + 2 * M + 1);  // nnz, or none
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int log2fpb = __ffs(fpb) - 1;
+  float2* za = buf + 2 * warp * hs;
+  float2* zb = za + hs;
+  // the last pass's output and the power: za and zb, or zb and za
+  const bool odd = pl.count & 1;
+  const float2* fin = odd ? za : zb;
+  float* pw = reinterpret_cast<float*>(odd ? zb : za);
+  const float* pw0 = reinterpret_cast<const float*>(buf + (odd ? hs : 0));
+  for (int i = tid; i < 2 * M + 1; i += blockDim.x) bands[i] = band[i];
+  for (int i = tid; i < nnz; i += blockDim.x) svals[i] = vals[i];
+
+  for (int g0 = blockIdx.x * fpb; g0 < frames; g0 += gridDim.x * fpb) {
+    for (int round = 0; round < rounds; ++round) {
+      const int g = g0 + round * c + warp, b = g / T;
+      const float* a = x + static_cast<long long>(b) * L + static_cast<long long>(g - b * T) * hop;
+      const bool inside = g < frames, paired = (reinterpret_cast<uintptr_t>(a) & 7) == 0;
+      switch (radix_of(pl, 0)) {
+        case 2: mixed_first<2>(a, inside, paired, window, za, h, lane); break;
+        case 4: mixed_first<4>(a, inside, paired, window, za, h, lane); break;
+        case 8: mixed_first<8>(a, inside, paired, window, za, h, lane); break;
+        default: mixed_first<16>(a, inside, paired, window, za, h, lane); break;
+      }
+      __syncwarp();
+      float2 *src = za, *to = zb;
+      const float2* tw = twiddle + h + 1;  // pass s's twiddles
+      for (int s = 1, ns = radix_of(pl, 0); s < pl.count; ++s) {
+        const int r = radix_of(pl, s);
+        switch (r) {
+          case 2: mixed_pass<2>(src, to, h, ns, tw, lane); break;
+          case 4: mixed_pass<4>(src, to, h, ns, tw, lane); break;
+          case 8: mixed_pass<8>(src, to, h, ns, tw, lane); break;
+          case 16: mixed_pass<16>(src, to, h, ns, tw, lane); break;
+          default: mixed_pass<5>(src, to, h, ns, tw, lane); break;
+        }
+        __syncwarp();
+        float2* t = src;
+        src = to;
+        to = t;
+        tw += ns * (r - 1);
+        ns *= r;
+      }
+
+      // unpack and square, as the power-of-two kernel does: for f in
+      // [0, h/2], bin f is E - i W_N^f O and bin h - f is E + i W_N^f O
+      for (int f = lane; f <= h / 2; f += 32) {
+        const float2 p = fin[pad16(f)], q = fin[pad16(f ? h - f : 0)];
+        const float er = p.x + q.x, ei = p.y - q.y;
+        const float2 wo = cmul(make_float2(p.x - q.x, p.y + q.y), __ldg(twiddle + f));
+        const float lr = er + wo.y, li = ei - wo.x, ur = er - wo.y, ui = ei + wo.x;
+        pw[f] = (lr * lr + li * li) * 0.25f + eps;
+        if (f < h / 2) pw[h - f] = (ur * ur + ui * ui) * 0.25f + eps;
+      }
+      __syncthreads();
+      project_mixed(pw0, 4 * hs, bands, nnz ? svals : vals, tile, M, fpb, round, c);
+      __syncthreads();
+    }
+    if (tid < fpb) {
+      const int g = g0 + tid, b = g / T;
+      dst[tid] = g < frames ? (static_cast<long long>(b) * M) * T + (g - b * T) : -1;
+    }
+    __syncthreads();
+    for (int o = tid; o < fpb * M; o += blockDim.x) {
+      const int i = o & (fpb - 1), m = o >> log2fpb;
+      const long long d = dst[i];
+      if (d >= 0) out[d + static_cast<long long>(m) * T] = tile[m * fpb + i];
+    }
+  }
+}
+
+// The frames in flight of a mixed-radix block (a power of two in [2, 16]),
+// the most whose shared memory lets two blocks share an SM, else one; 0
+// where not even two frames fit.
+int mixed_warps(int h, int m, int vals) {
+  for (int lim = SMEM_LIMIT / 2; lim <= SMEM_LIMIT; lim += SMEM_LIMIT / 2)
+    for (int c = MIXED_WARPS; c >= 2; c /= 2)
+      if (mixed_smem_bytes(h, c, m, vals) <= static_cast<size_t>(lim)) return c;
+  return 0;
+}
+
+int launch_mixed(const float* x, const float* window, const float2* twiddle, const int* band,
+                 const float* vals, float* out, int B, int L, int n, int hop, int T, int M,
+                 int nnz, float eps, cudaStream_t stream) {
+  MixedPasses pl;
+  const long long frames = static_cast<long long>(B) * T;
+  if (!mixed_passes(n, pl) || frames < 1 || frames > (1LL << 30) || M < 1 || nnz < 0 ||
+      hop < 1 || L < n)
+    return cudaErrorInvalidValue;
+  // the bands' entries in shared memory where a block of 16 frames still
+  // lets two blocks share an SM
+  const bool vals_shared =
+      mixed_smem_bytes(pl.h, MIXED_WARPS, M, nnz) <= static_cast<size_t>(SMEM_LIMIT) / 2;
+  const int c = mixed_warps(pl.h, M, vals_shared ? nnz : 0);
+  if (!c) return cudaErrorInvalidValue;
+  const size_t bytes = mixed_smem_bytes(pl.h, c, M, vals_shared ? nnz : 0);
+  static bool opened[MAX_DEVICES];
+  static size_t held_bytes[MAX_DEVICES];
+  static int held_warps[MAX_DEVICES], held[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (bytes > 48 * 1024 && !opened[dev]) {
+    err = cudaFuncSetAttribute(framed_fft_filterbank_mixed_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err != cudaSuccess) return err;
+    opened[dev] = true;
+  }
+  if (held_bytes[dev] != bytes || held_warps[dev] != c) {
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, framed_fft_filterbank_mixed_kernel, 32 * c, bytes);
+    if (err != cudaSuccess) return err;
+    held[dev] = blocks > 0 ? blocks : 1;
+    held_bytes[dev] = bytes;
+    held_warps[dev] = c;
+  }
+  // RUN frames at a time where that still gives every resident block some,
+  // else c
+  const long long resident = static_cast<long long>(device_sms()) * held[dev];
+  const int rounds = (frames + RUN - 1) / RUN >= resident ? RUN / c : 1;
+  const int fpb = c * rounds;
+  const long long chunks = (frames + fpb - 1) / fpb;
+  const long long grid = chunks < resident ? chunks : resident;
+  framed_fft_filterbank_mixed_kernel<<<static_cast<unsigned>(grid), 32 * c, bytes, stream>>>(
+      x, window, twiddle, band, vals, out, L, hop, T, M, vals_shared ? nnz : 0,
+      static_cast<int>(frames), rounds, eps, pl);
+  return cudaGetLastError();
+}
+
+// The twiddle table's length at a mixed-radix n, or 0 where the kernel
+// cannot project its frames onto m rows.
+int mixed_twiddles_if_fits(int n, int m) {
+  MixedPasses pl;
+  return mixed_passes(n, pl) && mixed_warps(pl.h, m, 0) ? pl.length : 0;
+}
+
+}  // namespace
+
 // out (B, M, T) fp32 <- x (B, L) fp32 framed by n (a power of two in
-// [64, 8192]) at hop, T = (L - n) / hop + 1; window (n,), twiddle, band and
-// vals (nnz entries) from ops/framed_kernels.py's FFTPlan. Returns a
-// cudaError_t.
+// [64, 8192], or 2^a 5^b there with a >= 2: the mixed-radix kernel) at hop,
+// T = (L - n) / hop + 1; window (n,), twiddle, band and vals (nnz entries)
+// from ops/framed_kernels.py's FFTPlan. Returns a cudaError_t.
 extern "C" int nnaudio_framed_filterbank_fft(const void* x, const void* window,
                                              const void* twiddle, const void* band,
                                              const void* vals, void* out, int B, int L,
@@ -485,7 +860,7 @@ extern "C" int nnaudio_framed_filterbank_fft(const void* x, const void* window,
     case 2048: return launch<10>(xs, w, tw, bd, v, o, B, L, hop, T, M, nnz, eps, s);
     case 4096: return launch<11>(xs, w, tw, bd, v, o, B, L, hop, T, M, nnz, eps, s);
     case 8192: return launch<12>(xs, w, tw, bd, v, o, B, L, hop, T, M, nnz, eps, s);
-    default: return cudaErrorInvalidValue;
+    default: return launch_mixed(xs, w, tw, bd, v, o, B, L, n, hop, T, M, nnz, eps, s);
   }
 }
 
@@ -501,8 +876,9 @@ int twiddles_if_fits(int m) {
 
 // The length of the twiddle table the kernel reads for frames of n samples
 // (ops/framed_kernels.py, fft_twiddles, makes it), or 0 where it cannot
-// project them onto m rows: n is not a power of two in [64, 8192], or a
-// block's shared memory would pass the H100's. The host asks this before it
+// project them onto m rows: n is neither a power of two in [64, 8192] nor
+// 2^a 5^b there with a >= 2, or a block's shared memory would pass the
+// H100's. The host asks this before it
 // builds a plan, so that this file alone decides the block's shape.
 extern "C" int nnaudio_framed_filterbank_fft_twiddles(int n, int m) {
   if (m < 1) return 0;
@@ -515,7 +891,7 @@ extern "C" int nnaudio_framed_filterbank_fft_twiddles(int n, int m) {
     case 2048: return twiddles_if_fits<10>(m);
     case 4096: return twiddles_if_fits<11>(m);
     case 8192: return twiddles_if_fits<12>(m);
-    default: return 0;
+    default: return mixed_twiddles_if_fits(n, m);
   }
 }
 

@@ -5,7 +5,8 @@ alias of the base class (nnAudio's name for it) and the function-level
 ``compat`` names nnAudio star-exports through ``nnAudio.features``. The
 helpers ``hermitian_weights``, ``power_to_db``, ``mfcc_from_db`` and
 ``normalize_frames`` are importable here too, outside ``__all__`` as in the
-JAX package.
+JAX package, and so is ``WhisperLogMel``, the port's own (Whisper's log-Mel
+front end), which the JAX package does not have.
 """
 from .base import SpectralTransform
 from .cfp import CFP, Combined_Frequency_Periodicity
@@ -15,7 +16,7 @@ from .gammatone import Gammatonegram
 from .griffin_lim import Griffin_Lim
 from .inverse_cqt import GriffinLimCQT
 from .inverse_mel import InverseMelSpectrogram, InverseMFCC
-from .mel import MFCC, MelSpectrogram, mfcc_from_db, power_to_db
+from .mel import MFCC, MelSpectrogram, WhisperLogMel, mfcc_from_db, power_to_db
 from .stft import STFT, hermitian_weights, iSTFT
 from .time_stretch import PitchShift, TimeStretch, phase_vocoder, resample
 from .vqt import VQT

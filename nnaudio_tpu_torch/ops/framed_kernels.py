@@ -213,11 +213,16 @@ def framed_filterbank_3xtf32_plain(x, wcos, wsin, fb, hop, eps=0.0):
     return out
 
 
-#: n_fft of K2's FFT route: a power of two in this range
+#: n_fft of the FFT routes: a power of two in this range (K2's also 2^a 5^b
+#: with a >= 2, :func:`mixed_radix`)
 FFT_MIN_N, FFT_MAX_N = 64, 8192
 #: points of the widest pass of the route's complex FFT, each held by one
 #: thread in registers (``RADIX`` in ``csrc/framed_fft.cu``)
 FFT_RADIX = 32
+#: cos(2 pi / 5), cos(4 pi / 5), sin(2 pi / 5), sin(4 pi / 5), each rounded
+#: once to fp32 (``C5_1`` ... ``S5_2`` in ``csrc/framed_fft.cu``)
+FFT_C5 = tuple(float(np.float32(v)) for v in (np.cos(0.4 * np.pi), np.cos(0.8 * np.pi),
+                                              np.sin(0.4 * np.pi), np.sin(0.8 * np.pi)))
 #: the recognition of a Fourier basis: each entry within FOURIER_ULPS fp32
 #: units of its value (2^-23 of it each) plus FOURIER_FLOOR times the
 #: window's largest value, of ``w[k] cos(2 pi f k / N)`` (or sin) evaluated
@@ -230,13 +235,37 @@ def _bitrev(q: int, bits: int) -> int:
     return int(format(q, f"0{bits}b")[::-1], 2) if bits else 0
 
 
+def mixed_radix(n: int) -> bool:
+    """Whether ``n`` is an n_fft of K2's mixed-radix kernel: 2^a 5^b in
+    [FFT_MIN_N, FFT_MAX_N] with a >= 2 and b >= 1."""
+    rest = n >> 2 if FFT_MIN_N <= n <= FFT_MAX_N and n % 4 == 0 else 0
+    while rest and rest % 2 == 0:
+        rest //= 2
+    fives = 0
+    while rest and rest % 5 == 0:
+        rest, fives = rest // 5, fives + 1
+    return rest == 1 and fives > 0
+
+
 def fft_radices(h: int) -> list[int]:
-    """The passes of the route's ``h``-point complex FFT: :data:`FFT_RADIX`
-    points each, the last one fewer where ``log2 h`` asks for it."""
+    """The passes of the route's ``h``-point complex FFT. For ``h`` a power
+    of two :data:`FFT_RADIX` points each, the last one fewer where ``log2 h``
+    asks for it; for ``h = 2^a 5^b`` (:func:`mixed_radix`) radix 16, 8, 4 or
+    2 for the 2^a part, in as few passes as radix 16 allows, the larger
+    first, then radix 5 b times (``mixed_passes`` in ``csrc/framed_fft.cu``)."""
     out = []
+    if h & (h - 1) == 0:
+        while h > 1:
+            out.append(min(FFT_RADIX, h))
+            h //= out[-1]
+        return out
+    twos = (h & -h).bit_length() - 1
+    parts = -(-twos // 4)
+    out = [1 << (twos // parts + (i < twos % parts)) for i in range(parts)]
+    h >>= twos
     while h > 1:
-        out.append(min(FFT_RADIX, h))
-        h //= out[-1]
+        out.append(5)
+        h //= 5
     return out
 
 
@@ -298,6 +327,20 @@ def _cmul(ar, ai, wr, wi):
     return ar * wr - ai * wi, ar * wi + ai * wr
 
 
+def _dft5(vr, vi):
+    """The radix-5 step of the mixed-radix kernel (``dft5``) on 5 points, in
+    its order of operations. Returns the 5 outputs in natural order."""
+    c1, c2, s1, s2 = FFT_C5
+    t1r, t1i, t2r, t2i = vr[1] + vr[4], vi[1] + vi[4], vr[2] + vr[3], vi[2] + vi[3]
+    t3r, t3i, t4r, t4i = vr[1] - vr[4], vi[1] - vi[4], vr[2] - vr[3], vi[2] - vi[3]
+    a1r, a1i = vr[0] + c1 * t1r + c2 * t2r, vi[0] + c1 * t1i + c2 * t2i
+    a2r, a2i = vr[0] + c2 * t1r + c1 * t2r, vi[0] + c2 * t1i + c1 * t2i
+    b1r, b1i = s1 * t3r + s2 * t4r, s1 * t3i + s2 * t4i
+    b2r, b2i = s2 * t3r - s1 * t4r, s2 * t3i - s1 * t4i
+    return ([vr[0] + t1r + t2r, a1r + b1i, a2r + b2i, a2r - b2i, a1r - b1i],
+            [vi[0] + t1i + t2i, a1i - b1r, a2i - b2r, a2i + b2r, a1i + b1r])
+
+
 def _dft_in_registers(vr, vi, w32r, w32i):
     """The radix-R step of one thread on R points: decimation in frequency,
     radix 2, from the widest half to the narrowest; ``d * W_2half^i`` is
@@ -329,10 +372,10 @@ def _fft_stockham(zr, zi, table):
     point r by ``W_(Ns R)^(r k)`` (k = j mod Ns; none in the first pass,
     where k is 0), the step of :func:`_dft_in_registers`, and writing point
     q to ``(j // Ns) Ns R + k + q Ns``: natural order at the end. ``table``
-    is :func:`fft_twiddles`."""
+    is :func:`fft_twiddles`. A radix-5 pass takes :func:`_dft5`'s step."""
     h = zr.shape[-1]
     tr, ti = table[:, 0], table[:, 1]
-    w32r, w32i = tr[:h:h // 16], ti[:h:h // 16]
+    w32r, w32i = fft_twiddles(32, zr.device)[:16].unbind(1)
     ns = 1
     for r, at in zip(fft_radices(h), fft_pass_offsets(h)):
         m = h // r
@@ -344,7 +387,7 @@ def _fft_stockham(zr, zi, table):
             for q in range(1, r):
                 w = at + (q - 1) * ns + k
                 vr[q], vi[q] = _cmul(vr[q], vi[q], tr[w], ti[w])
-        vr, vi = _dft_in_registers(vr, vi, w32r, w32i)
+        vr, vi = _dft5(vr, vi) if r == 5 else _dft_in_registers(vr, vi, w32r, w32i)
         base = (j // ns) * ns * r + k
         zr, zi = torch.empty_like(zr), torch.empty_like(zi)
         for q in range(r):
@@ -1055,23 +1098,25 @@ def _kernel_takes(n: int, m: int) -> bool:
     return _fft_kernel_takes("nnaudio_framed_filterbank_fft_twiddles", n, m)
 
 
-def _fourier_shape(wcos, wsin) -> bool:
+def _fourier_shape(wcos, wsin, mixed: bool = False) -> bool:
     """Whether ``(wcos, wsin)`` have the shape and type of an FFT route's
-    Fourier basis: fp32 (F, N), N a power of two in [64, 8192], F = N/2 + 1."""
+    Fourier basis: fp32 (F, N), N a power of two in [64, 8192] (or, where
+    ``mixed``, 2^a 5^b there: :func:`mixed_radix`), F = N/2 + 1."""
     f, n = wcos.shape
-    return (FFT_MIN_N <= n <= FFT_MAX_N and n & (n - 1) == 0 and f == n // 2 + 1
-            and wcos.dtype == wsin.dtype == torch.float32 and wsin.shape == wcos.shape)
+    return ((FFT_MIN_N <= n <= FFT_MAX_N and n & (n - 1) == 0 or mixed and mixed_radix(n))
+            and f == n // 2 + 1 and wcos.dtype == wsin.dtype == torch.float32
+            and wsin.shape == wcos.shape)
 
 
 def build_fft_plan(wcos, wsin, fb) -> FFTPlan | None:
     """The FFT route's plan for ``(wcos, wsin, fb)``, or None where they are
     not its operands: fp32 bases (F, N) with N a power of two in [64, 8192]
-    and F = N/2 + 1 that are the Fourier basis of the window ``wcos[0]``
-    (:func:`_fourier_mismatch`), and an fp32 or bf16 filterbank (M, F); on
-    the card, one that the kernel takes (:func:`_kernel_takes`). One
-    synchronisation."""
+    or 2^a 5^b there (:func:`mixed_radix`) and F = N/2 + 1 that are the
+    Fourier basis of the window ``wcos[0]`` (:func:`_fourier_mismatch`), and
+    an fp32 or bf16 filterbank (M, F); on the card, one that the kernel takes
+    (:func:`_kernel_takes`). One synchronisation."""
     f, n = wcos.shape
-    if not (_fourier_shape(wcos, wsin) and fb.dtype in (torch.float32, torch.bfloat16)
+    if not (_fourier_shape(wcos, wsin, mixed=True) and fb.dtype in (torch.float32, torch.bfloat16)
             and fb.ndim == 2 and fb.shape[1] == f):
         return None
     if wcos.is_cuda and not _kernel_takes(n, fb.shape[0]):

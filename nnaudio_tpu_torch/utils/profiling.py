@@ -19,6 +19,8 @@ span                            where
 ``.forward``, ``.backward``,
 ``.update``
 ``nnaudio.K5.backward``         the pair's backward (dW products, dx)
+``nnaudio.db``                  ``features.mel.power_to_db`` (``MFCC``,
+                                ``WhisperLogMel``, ``StreamingMFCC``)
 ``nnaudio.route.K2.fft``,       not a span: the count of K2's and K3's
 ``.dense``, ``K3.fft``,         dispatches by route, chosen from the operands
 ``K3.dense``                    (``ops.framed_kernels.fft_plan``,
@@ -93,6 +95,10 @@ def trace(log_dir: str = "nnaudio_tpu_torch_trace"):
     where = TraceDir(log_dir)
     with profile(activities=activities) as prof:
         session = span_sessions() - 1
+        if torch.cuda.is_available():
+            # the device tracer needs a moment before it records every
+            # launch: without it a block's first kernels can be missing
+            time.sleep(0.05)
         yield where
         if torch.cuda.is_available():
             torch.cuda.synchronize()

@@ -53,7 +53,7 @@ def plan_builds(monkeypatch):
 
 
 # --------------------------------------------------------------- recognition --
-@pytest.mark.parametrize("n_fft", [256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("n_fft", [256, 400, 512, 1024, 2048, 4096])
 @pytest.mark.parametrize("window", ["hann", "hamming"])
 def test_the_stft_builders_bases_are_recognised(n_fft, window):
     wc, ws = _bases(n_fft, window)
@@ -70,10 +70,12 @@ def test_a_window_shorter_than_n_fft_is_recognised(n_fft, win_length):
     assert fk.build_fft_plan(wc, ws, _mel(n_fft, 40)) is not None
 
 
-@pytest.mark.parametrize("case", ["entry of wcos", "entry of wsin", "nan", "n_fft 400",
-                                  "freq_scale log", "freq_bins 100", "fb width"])
+@pytest.mark.parametrize("case", ["entry of wcos", "entry of wsin", "nan", "n_fft 448",
+                                  "n_fft 600", "freq_scale log", "freq_bins 100", "fb width"])
 def test_other_bases_are_not_recognised(case):
-    n_fft = 400 if case == "n_fft 400" else 512
+    """Bases off the Fourier basis, and n_fft the route has no kernel for:
+    448 = 7 x 64 and 600 = 3 x 200 (n_fft 400 = 2^4 5^2 is taken)."""
+    n_fft = int(case.split()[1]) if case.startswith("n_fft") else 512
     kw = {"freq_scale log": dict(freq_scale="log", fmin=50, fmax=6000, sr=22050),
           "freq_bins 100": dict(freq_bins=100)}.get(case, {})
     wc, ws = (t.clone() for t in _bases(n_fft, **kw))
@@ -201,7 +203,25 @@ def test_the_twiddle_table_and_the_kernels_constants_agree():
             assert tuple(w) == pytest.approx(want, abs=0.0)
 
 
-@pytest.mark.parametrize("h", [32, 64, 128, 256, 512, 1024, 2048, 4096])
+def test_the_radix_5_constants_and_the_mirrors_agree():
+    """C5_1 ... S5_2 in csrc/framed_fft.cu hold the mirror's FFT_C5."""
+    src = (build.CSRC / "framed_fft.cu").read_text()
+    consts = dict(re.findall(r"([CS]5_[12]) = (-?0x[0-9a-fp.+-]+)f", src))
+    got = tuple(float.fromhex(consts[k]) for k in ("C5_1", "C5_2", "S5_1", "S5_2"))
+    assert got == fk.FFT_C5
+
+
+@pytest.mark.parametrize("n,radices", [(400, [8, 5, 5]), (320, [8, 4, 5]), (800, [16, 5, 5]),
+                                       (1600, [8, 4, 5, 5]), (500, [2, 5, 5, 5]),
+                                       (8000, [8, 4, 5, 5, 5]), (2048, [32, 32])])
+def test_the_route_takes_mixed_radix_n_in_passes_of_16_or_fewer_then_5(n, radices):
+    assert fk.mixed_radix(n) == (n != 2048)
+    assert fk.fft_radices(n // 2) == radices
+    assert fk.fft_twiddles(n).shape[0] == fk.fft_pass_offsets(n // 2)[-1]
+    assert not any(fk.mixed_radix(k) for k in (448, 600, 250, 60, 10000, 1024))
+
+
+@pytest.mark.parametrize("h", [32, 64, 128, 256, 512, 1024, 2048, 4096, 160, 200, 400, 800])
 def test_the_mirrors_complex_fft_is_the_dft(h):
     rng = np.random.RandomState(h)
     z = rng.randn(3, h) + 1j * rng.randn(3, h)
@@ -214,8 +234,12 @@ def test_the_mirrors_complex_fft_is_the_dft(h):
 
 
 @pytest.mark.parametrize("n_fft,hop,window", [(256, 61, "hann"), (1024, 255, "hamming"),
-                                              (2048, 512, "hann"), (4096, 1001, "hann")])
+                                              (2048, 512, "hann"), (4096, 1001, "hann")] + [
+    (n_fft, hop, "hann") for n_fft in (320, 400, 800, 1600) for hop in (160, 100, 441)])
 def test_the_mirror_matches_a_float64_mel_and_the_dense_plain_version(n_fft, hop, window):
+    """At the powers of two and at Whisper's n_fft and its kin (mixed radix):
+    fp32's rounding through a few passes, 2e-6 of float64; 1e-5 of the dense
+    plain version."""
     wc, ws = _bases(n_fft, window)
     fb = _mel(n_fft, 64)
     rng = np.random.RandomState(n_fft)
@@ -229,6 +253,37 @@ def test_the_mirror_matches_a_float64_mel_and_the_dense_plain_version(n_fft, hop
     assert _rel(got, want) <= 2e-6
     dense = fk.framed_filterbank_plain(torch.from_numpy(x), wc, ws, fb, hop).numpy()
     assert _rel(got, dense) <= 1e-5
+
+
+def test_a_whisper_basis_is_recognised():
+    """WhisperLogMel's bases and its 128 x 201 Slaney bank (394 nonzero
+    entries, none of its rows empty, the widest 9 columns) make a plan."""
+    layer = features.WhisperLogMel(device="cpu")
+    plan = fk.build_fft_plan(layer.wcos, layer.wsin, layer.mel_basis)
+    assert plan is not None and plan.m == 128 and plan.vals.numel() == 394
+    lo, off, _ = fk.filterbank_bands(layer.mel_basis)
+    length = off[1:] - off[:-1]
+    assert int(length.min()) >= 1 and int(length.max()) == 9
+    assert plan.twiddle.shape[0] == fk.fft_pass_offsets(200)[-1]
+
+
+def test_a_stream_at_n_fft_400_on_the_route_is_the_offline_mel():
+    """StreamingMel at Whisper's n_fft 400, hop 160, on K2's route (its
+    mirror): the steps' frames are the offline center=False Mel's, bit for
+    bit, whatever the chunks."""
+    kw = dict(sr=16000, n_fft=400, hop_length=160, n_mels=128, fmax=8000.0)
+    s = streaming.StreamingMel(**kw, device="cpu")
+    offline = features.MelSpectrogram(**kw, center=False, verbose=False, device="cpu")
+    x = torch.from_numpy(np.random.RandomState(9).randn(3, 160 * 40).astype(np.float32))
+    with _kernel_route() as calls, torch.no_grad():
+        state, outs = s.init_state(3), []
+        for a, b in ((0, 320), (320, 1600), (1600, 1760), (1760, 6400)):
+            state, out = s.step(state, x[:, a:b])
+            outs.append(out)
+        want = offline(x)
+    got = torch.cat(outs, 2)
+    assert calls["framed_filterbank"] == 0 and calls["framed_filterbank_fft"] >= 4
+    assert got.shape == want.shape and torch.equal(got, want)
 
 
 def test_the_mirror_adds_eps_to_every_bin():
@@ -268,10 +323,11 @@ def _kernel_route():
                                         ("mfcc", "framed_filterbank_fft"),
                                         ("trainable STFT", "framed_filterbank"),
                                         ("random basis", "framed_filterbank"),
-                                        ("n_fft 400", "framed_filterbank")])
+                                        ("n_fft 400", "framed_filterbank_fft"),
+                                        ("n_fft 448", "framed_filterbank")])
 def test_each_basis_takes_its_route(case, route):
-    kw = dict(n_fft=400 if case == "n_fft 400" else 512, hop_length=128, n_mels=40,
-              verbose=False, device="cpu")
+    kw = dict(n_fft=int(case.split()[1]) if case.startswith("n_fft") else 512, hop_length=128,
+              n_mels=40, verbose=False, device="cpu")
     if case == "mfcc":
         layer = features.MFCC(n_mfcc=13, **kw)
     else:
@@ -376,10 +432,11 @@ def test_the_blocks_shared_memory_fits_the_mel_defaults(cuda):
     """The kernel owns its block's shape: it takes every n_fft of the route
     at 256 rows, reads fft_twiddles' table, and refuses a width it has no
     instance for or rows past its shared memory."""
-    for n in (64, 128, 256, 512, 1024, 2048, 4096, 8192):
+    for n in (64, 128, 256, 512, 1024, 2048, 4096, 8192, 80, 320, 400, 500, 1600, 8000):
         assert fk._kernel_takes(n, 256)
-    assert not fk._kernel_takes(400, 128) and not fk._kernel_takes(2048, 0)
-    assert not fk._kernel_takes(8192, 1 << 16)
+    assert not fk._kernel_takes(448, 128) and not fk._kernel_takes(600, 128)
+    assert not fk._kernel_takes(2048, 0)
+    assert not fk._kernel_takes(8192, 1 << 16) and not fk._kernel_takes(8000, 1 << 16)
 
 
 def _card_case(cuda, n_fft, m, b, length, seed=0):
@@ -451,3 +508,31 @@ def test_the_launches_show_the_route(cuda, case, route):
     launched = {k: fk.LAUNCHES[k] - before[k] for k in ("framed_filterbank",
                                                         "framed_filterbank_fft")}
     assert launched == {k: int(k == route) for k in launched}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [3001, 4])
+def test_the_kernel_at_whispers_n_fft_matches_its_mirror_and_float64(cuda, t):
+    """K2's mixed-radix kernel at WhisperLogMel's n_fft 400, hop 160, 128
+    mels: a 30 s window's 3,001 frames (B=2) and a stream step's 4, against
+    the mirror (1e-6: fp32 contracted otherwise), float64 (2e-6) and dense K2
+    (1e-5); bit-equal runs, and each batch item alone gives its own bits."""
+    layer = features.WhisperLogMel(device=cuda)
+    wc, ws, fb = layer.wcos, layer.wsin, layer.mel_basis
+    g = torch.Generator(device=cuda).manual_seed(t)
+    x = torch.randn(2, 400 + 160 * (t - 1), generator=g, device=cuda)
+    before = fk.LAUNCHES["framed_filterbank_fft"]
+    with torch.no_grad():
+        got = fk.framed_filterbank(x, wc, ws, fb, 160)
+        twice = fk.framed_filterbank(x, wc, ws, fb, 160)
+        alone = torch.cat([fk.framed_filterbank(x[i:i + 1], wc, ws, fb, 160) for i in range(2)])
+        with fk.span("nnaudio.wrap.K2"):
+            dense = fk._launch_filterbank(x, wc, ws, fb, 160, 0.0)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["framed_filterbank_fft"] == before + 4
+    assert got.shape == (2, 128, t)
+    assert torch.equal(got, twice) and torch.equal(got, alone)
+    assert _rel(got.cpu(), fk.framed_filterbank_fft_plain(x, wc, ws, fb, 160).cpu()) <= 1e-6
+    assert _rel(got.cpu(), dense.cpu()) <= 1e-5
+    want = fk.framed_filterbank_plain(x.double(), wc.double(), ws.double(), fb.double(), 160)
+    assert _rel(got.cpu(), want.cpu()) <= 2e-6

@@ -483,3 +483,106 @@ def test_the_k3_fft_roofline_reads_the_routes_kernel_alone(cell, metric, shape):
     assert harness.reader(metric)(ctx) is None
     trace.kernel_s["void (anonymous namespace)::synthesis_fft_ola_kernel<9>"] = 2e-3
     assert harness.reader(metric)(ctx) == pytest.approx(100 * least / 2e-3)
+
+
+# ----------------------------------------------- the dB epilogue's span --
+@pytest.mark.parametrize("name,make", [
+    ("WhisperLogMel", lambda: features.WhisperLogMel(device="cpu")),
+    ("MFCC", lambda: features.MFCC(sr=16000, n_fft=400, hop_length=160, n_mels=40,
+                                   verbose=False, device="cpu"))])
+def test_power_to_db_is_the_db_span_inside_its_transform(name, make):
+    """``nnaudio.db`` holds ``power_to_db``'s operations (the clamp, the
+    log, the max) and sits inside the transform's own span."""
+    layer = make()
+    x = torch.randn(2, 3200, generator=torch.Generator().manual_seed(11))
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        layer(x)
+        layer(x)
+    found = [e for e in prof.events() if e.name == "nnaudio.db"]
+    assert len(found) == 2
+    assert {_port_parent(e) for e in found} == {f"nnaudio.transform.{name}"}
+    inside = {e.name for e in prof.events() if e.cpu_parent is not None
+              and any(e.cpu_parent is f or e.cpu_parent.id == f.id for f in found)}
+    assert {"aten::log10", "aten::amax"} <= inside
+    table = profiling.span_table()
+    assert table["nnaudio.db"].count == 2 and table["nnaudio.db"].outer == 0
+
+
+WHISPER = "whisper128_16k.serve_b32x30s"
+WHISPER_SHAPE = (32, 480_000)
+
+
+def _whisper_context(trace):
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cell = harness.find_cell(bench, WHISPER, ROOT)
+    window = {"attempted": 4, "seconds": 2.0, "host_s": 0.004, "audio_s": 4 * 960.0,
+              "shapes": {WHISPER_SHAPE: 4}}
+    return harness.Context(cell=cell, window=window, trace=trace, work=harness.work(cell))
+
+
+def _whisper_trace():
+    Launch = bench_trace.Launch
+    db = ("aten::log10", "nnaudio.db", "nnaudio.transform.WhisperLogMel", "bench_port.call")
+    return bench_trace.Trace(
+        window_s=1.0, busy_s=0.75,
+        kernel_s={"void (anonymous namespace)::framed_fft_filterbank_mixed_kernel": 1e-3,
+                  "void at::native::reflection_pad1d_out_kernel": 5.0},
+        launches=[Launch("framed_fft_filterbank_mixed_kernel", 1e-4,
+                         ("nnaudio.launch.K2", "nnaudio.wrap.K2", db[2], db[3])),
+                  Launch("elementwise_kernel", 2e-4, db), Launch("reduce_kernel", 1e-4, db),
+                  Launch("elementwise_kernel", 3e-4, ("aten::div", db[2], db[3]))],
+        idle_by_host=[], stats={"shapes": {WHISPER_SHAPE: 10}},
+        host_stats={"attempted": 2, "shapes": {WHISPER_SHAPE: 2}})
+
+
+def test_the_whisper_cells_readers_on_a_made_up_trace():
+    """K2's least time at 32 x 30 s (bytes: the signal in, the (B, M, T)
+    mel out, 110.6 MB) over the mixed-radix kernel's device time; the
+    kernels under nnaudio.db per call; the host ms, idle share and the
+    call's least time (K2's and the epilogue's) over the window."""
+    ctx = _whisper_context(_whisper_trace())
+    k2 = 4 * (32 * 480_000 + 32 * 128 * 3001) / 3.35e12
+    assert ctx.least_seconds("K2", {WHISPER_SHAPE: 1}) == pytest.approx(k2)
+    read = lambda m: harness.reader(m)(ctx)  # noqa: E731
+    assert read("roofline_pct.K2fft.serve") == pytest.approx(100 * 10 * k2 / 1e-3)
+    assert read("db_ms_per_call.whisper") == pytest.approx(1e3 * 3e-4 / 2)
+    assert read("host_ms_per_call.serve") == pytest.approx(1.0)
+    assert read("device_idle_pct.serve") == pytest.approx(25.0)
+    call = 4 * (32 * 480_000 + 32 * 128 * 3000) / 3.35e12
+    assert read("mfu.serve") == pytest.approx(100 * 4 * call / 2.0)
+
+
+#: the per-layer metrics cell 7 reports: the accepted serve cells' readers,
+#: which read its call as theirs, and the dB epilogue's own
+WHISPER_METRICS = ("host_ms_per_call.serve", "device_idle_pct.serve", "mfu.serve",
+                   "host_self_ms.transform.serve", "host_self_ms.wrap.serve",
+                   "host_self_ms.launch.serve", "operand_copy_mb_per_call.serve",
+                   "idle_ms_per_call.port.serve", "roofline_pct.K2fft.serve",
+                   "fft_route_pct.serve", "db_ms_per_call.whisper")
+
+
+@pytest.mark.parametrize("metric", WHISPER_METRICS)
+def test_the_whisper_cell_is_on_its_metrics_lists(metric):
+    """Each metric cell 7 reports lists the cell, moves its end-to-end
+    metric and has a reader; no other metric lists it."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    entries = {m["name"]: m for m in bench["per_layer"]}
+    assert WHISPER in entries[metric]["workloads"]
+    assert entries[metric]["moves"] == "audio_s_per_s"
+    assert callable(harness.reader(metric))
+    assert {m["name"] for m in bench["per_layer"]
+            if WHISPER in m.get("workloads", [])} == set(WHISPER_METRICS)
+
+
+def test_the_whisper_cells_readers_read_nothing_without_the_route_or_the_span():
+    """A port without the mixed-radix route or the dB span (the parent of
+    the change that brought them) reads nothing there, not zero."""
+    t = _whisper_trace()
+    t.kernel_s = {"void at::native::reflection_pad1d_out_kernel": 5.0}
+    t.launches = [bench_trace.Launch(l.kernel, l.seconds, tuple(c for c in l.chain
+                                                                 if c != "nnaudio.db"))
+                  for l in t.launches]
+    ctx = _whisper_context(t)
+    for metric in ("roofline_pct.K2fft.serve", "db_ms_per_call.whisper"):
+        assert harness.reader(metric)(ctx) is None
+        assert harness.reader(metric)(_whisper_context(None)) is None
