@@ -170,6 +170,7 @@ REPS = 15
 # a fixed constant, so that adding or removing a phase, or a draw inside one,
 # changes no other phase's inputs
 PHASE_SEEDS = {"3 kernels": 301, "3 tensor cores": 302, "3 K6": 303, "3 K3": 304, "3 K4": 305,
+               "3 NNLS": 306, "e NNLS": 418,
                "a highest": 401, "a default": 402, "b highest": 403, "b default": 404,
                "d": 405, "g": 406, "j-l": 407, "b grad, d step": 408, "m": 409,
                "o": 410, "p": 411, "q": 412, "s": 413, "t": 414, "u": 415,
@@ -192,7 +193,8 @@ PROFILE_NAMES = {"framed_magnitude": "framed_tc_kernel",
                  "framed_magnitude_kchunk": "kchunk_tc_kernel",
                  "framed_filterbank_fft": "framed_fft_filterbank_kernel",
                  "synthesis_ola_fft": "synthesis_fft_ola_kernel",
-                 "gl_step_fft": "gl_step_fft_kernel"}
+                 "gl_step_fft": "gl_step_fft_kernel",
+                 "nnls_banded": "nnls_banded_kernel"}
 
 
 def k2_route(mode):
@@ -985,6 +987,71 @@ def main() -> int:
         if not ok:
             fail(f"K4's FFT route disagrees with its mirror, the pair or itself: {label}")
         del x, S, p_re, p_im, k4, mirror, pair
+    # the inverse Mel's NNLS kernel (the seed and every step, one launch) on a
+    # transform's own basis: against its plain mirror and the dense products
+    # of the plain route, twice for bit equality; at (e)'s shape (862 frames:
+    # a last block of 30 columns), a step fewer on mels read through a copy,
+    # one frame, 128 mels at n_fft 2048 and an HTK basis
+    gen = phase_gen("3 NNLS")
+    config.set_matmul_precision("highest")
+    mel80 = dict(sr=22050, n_fft=1024, n_mels=80, fmax=8000.0)
+    for label, b, t, n_iter, layout, kw in (
+            ("(e) 80 mels", 32, 862, 64, "contiguous", mel80),
+            ("(e) 63 steps", 32, 862, 63, "transposed", mel80),
+            ("one frame", 3, 1, 64, "contiguous", mel80),
+            ("128 mels, n_fft 2048", 4, 431, 64, "contiguous",
+             dict(sr=22050, n_fft=2048, n_mels=128)),
+            ("HTK 40 mels", 5, 40, 17, "transposed", dict(sr=16000, n_fft=512, n_mels=40,
+                                                          htk=True))):
+        inv_n = InverseMelSpectrogram(hop_length=256, verbose=False, device=dev, **kw)
+        basis, pinv, step = inv_n.mel_basis, inv_n.mel_pinv, inv_n._step
+        spectra = torch.rand(b, basis.shape[1], t, generator=gen, device=dev) ** 4
+        mel_n = torch.einsum("mf,bft->bmt", basis, spectra)
+        if layout == "transposed":
+            mel_n = mel_n.transpose(1, 2).contiguous().transpose(1, 2)
+        with torch.no_grad():
+            fk.reset_launches()
+            got = fk.nnls(basis, pinv, mel_n, step, n_iter)
+            torch.cuda.synchronize()
+            routed = fk.LAUNCHES["nnls_banded"] == 1
+            same = torch.equal(got, fk.nnls(basis, pinv, mel_n, step, n_iter))
+            mirror = fk.nnls_banded_plain(basis, pinv, mel_n, step, n_iter)
+            products = fk.nnls_plain(basis, pinv, mel_n, step, n_iter)
+        e_mirror, e_products = rel_err(got, mirror), rel_err(got, products)
+        ok = routed and same and e_mirror <= 1e-5 and e_products <= 1e-5
+        if label == "(e) 80 mels":
+            max_abs["nnls_banded"] = float((got - mirror).abs().max())
+        log(f"[check] highest  NNLS {label:22s} B={b} T={t} M={basis.shape[0]} "
+            f"F={basis.shape[1]} steps={n_iter} ({layout} mels): vs its mirror {e_mirror:.2e}, "
+            f"vs the products {e_products:.2e} (tol 1e-05); second launch "
+            f"{'bit-equal' if same else 'DIFFERS'}{'' if routed else '; NOT ROUTED'} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the NNLS kernel disagrees with its mirror, the products or itself: {label}")
+        del inv_n, spectra, mel_n, got, mirror, products
+    # a banded basis whose bins meet three rows: the kernel reads those bins'
+    # entries from the band's values, not from their headers
+    basis = torch.zeros(12, 42, device=dev)
+    for m in range(12):
+        basis[m, 3 * m:3 * m + 9] = torch.rand(9, generator=gen, device=dev)
+    pinv = torch.linalg.pinv(basis.double()).float()
+    fk.mark_own(basis, pinv)
+    mel_n = torch.einsum("mf,bft->bmt", basis,
+                         torch.rand(3, 42, 70, generator=gen, device=dev) ** 4)
+    with torch.no_grad():
+        fk.reset_launches()
+        got = fk.nnls(basis, pinv, mel_n, 0.05, 16)
+        torch.cuda.synchronize()
+        routed = fk.LAUNCHES["nnls_banded"] == 1
+        e_mirror = rel_err(got, fk.nnls_banded_plain(basis, pinv, mel_n, 0.05, 16))
+        e_products = rel_err(got, fk.nnls_plain(basis, pinv, mel_n, 0.05, 16))
+    ok = routed and e_mirror <= 1e-5 and e_products <= 1e-5
+    log(f"[check] highest  NNLS three rows a bin      B=3 T=70 M=12 F=42 steps=16: vs its mirror "
+        f"{e_mirror:.2e}, vs the products {e_products:.2e} (tol 1e-05)"
+        f"{'' if routed else '; NOT ROUTED'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the NNLS kernel disagrees with its mirror or the products on bins of three rows")
+    del basis, pinv, mel_n, got
 
     # ------------------------------------------------- 4. the serving slice --
     # a numpy rfft oracle at a small input first
@@ -1175,7 +1242,7 @@ def main() -> int:
         drive("(e) mel -> audio, 2 Griffin-Lim iterations",
               lambda: inv2(mel_e(xh)), shape_e, tol=GL_TOL["default"],
               expect={k2_route("highest"): 1, "gl_step": 2, "synthesis_ola": 2,
-                      "synthesis_ola_fft": 1})
+                      "synthesis_ola_fft": 1, "nnls_banded": 1})
         S_f = st_f(xh)
         drive("(f) Griffin-Lim fp32, 2 iterations", lambda: gl2(S_f), shape_f,
               tol=GL_TOL["highest"],
@@ -1188,7 +1255,8 @@ def main() -> int:
         for label, fn, shape, st, target, expect in (
                 ("(e) mel -> audio", lambda: inv(mel_e(xh)), shape_e, st_e,
                  target_e, {k2_route("highest"): 1, "gl_step": n_iter,
-                            "synthesis_ola": n_iter, "synthesis_ola_fft": 1}),
+                            "synthesis_ola": n_iter, "synthesis_ola_fft": 1,
+                            "nnls_banded": 1}),
                 ("(f) Griffin-Lim fp32", lambda: gl(S_f), shape_f, st_f, S_f,
                  {"gl_step_fft": n_iter, "synthesis_ola_fft": n_iter + 1})):
             (audio,), dt, counts = counted(label, fn, shape, expect)
@@ -1210,7 +1278,26 @@ def main() -> int:
                            / torch.linalg.vector_norm(mel))
                 results["e_mel_round_trip"] = rt
                 log(f"[path] (e) mel-domain round-trip error {rt:.4f}")
-        del inv, gl, inv2, gl2, mel, target_e, S_f, xh
+        # the inversion cell's transform (fp32 carries, power 1, 8 kHz) with
+        # the counts zeroed: its NNLS is one launch of the NNLS kernel and no
+        # cuBLAS product runs in the call
+        gen = phase_gen("e NNLS")
+        inv_c = InverseMelSpectrogram(sr=sr_b, n_fft=1024, hop_length=256, n_mels=80,
+                                      fmax=8000.0, power=1.0, n_iter=2,
+                                      iter_precision="highest", verbose=False, device=dev)
+        mel_c = mel_e(xh).sqrt()
+        phase_c = torch.rand(batch, 513, mel_c.shape[-1], generator=gen, device=dev)
+        drive("(e) the inversion cell's transform, 2 iterations",
+              lambda: inv_c(mel_c, rand_phase=phase_c), shape_e, tol=GL_TOL["highest"],
+              expect={"nnls_banded": 1, "gl_step_fft": 2, "synthesis_ola_fft": 3})
+        _, kernels_c = profile_path(lambda: inv_c(mel_c, rand_phase=phase_c))
+        products_c = [k for k in kernels_c if "gemm" in k]
+        log(f"[path] (e) the inversion cell's transform under torch.profiler: NNLS kernels "
+            f"{[k[:40] for k in kernels_c if 'nnls_banded' in k]}, cuBLAS products "
+            f"{products_c or 'none'}")
+        if products_c or not any("nnls_banded_kernel" in k for k in kernels_c):
+            fail("(e): the inversion's NNLS did not run as its one kernel")
+        del inv, gl, inv2, gl2, mel, target_e, S_f, xh, inv_c, mel_c, phase_c
 
     # a numpy oracle for the CQT through K6: 1 s at the default bank
     xs = np.random.RandomState(1).randn(1, 22050).astype(np.float32)
@@ -2402,6 +2489,31 @@ def main() -> int:
                 log(f"[time] highest  gl_step_fft: the pair (K5) and the update on the same "
                     f"step {rows['gl_step_fft']['pair_ms']:.3f} ms")
                 del p4f, wc4, ws4
+                # the NNLS kernel at the inversion cell's call: 32 mels of 862
+                # frames, 80 mels to 8 kHz (727 nonzero entries), 64 steps;
+                # the least work is bench_port's (roofline_pct.NNLS.invert):
+                # the dense seed and 4 a nonzero entry and column each step,
+                # M and pinv(M) and the mels in, s out. Beside it the seed
+                # alone, and the 129 products and ATen steps it replaces
+                inv5 = InverseMelSpectrogram(sr=sr_b, n_fft=1024, hop_length=256, n_mels=80,
+                                             fmax=8000.0, verbose=False, device=dev)
+                m5, f5 = inv5.mel_basis.shape
+                nz5 = int((inv5.mel_basis != 0).sum())
+                mel5 = torch.einsum("mf,bft->bmt", inv5.mel_basis,
+                                    torch.rand(batch, f5, t4, generator=gen, device=dev) ** 4)
+                nnls5 = (inv5.mel_basis, inv5.mel_pinv, mel5, inv5._step)
+                rows["nnls_banded"] = dict(
+                    ms=kernel_ms(lambda: fk.nnls(*nnls5, 64)),
+                    seed_ms=kernel_ms(lambda: fk.nnls(*nnls5, 0)),
+                    plain_ms=kernel_ms(lambda: fk.nnls_banded_plain(*nnls5, 64)),
+                    library_ms=kernel_ms(lambda: fk.nnls_plain(*nnls5, 64)),
+                    library="the 129 fp32 products and the ATen steps (the plain route)",
+                    flops=batch * t4 * (2 * f5 * m5 + 64 * 4 * nz5),
+                    bytes=4 * (2 * m5 * f5 + batch * m5 * t4 + batch * f5 * t4),
+                    shape=f"B={batch} M={m5} F={f5} T={t4}, {nz5} nonzero entries, 64 steps")
+                log(f"[time] highest  nnls_banded: the seed kernel alone "
+                    f"{rows['nnls_banded']['seed_ms']:.3f} ms")
+                del inv5, mel5, nnls5
             rows["gl_step"] = dict(
                 ms=kernel_ms(lambda: fk.gl_step(x4, wc2, ws2, S4, *p4, 256, MOM)),
                 plain_ms=kernel_ms(lambda: fk.gl_step_plain(x4, wc2, ws2, S4, *p4, 256, MOM)),
@@ -2525,6 +2637,9 @@ def main() -> int:
                               "nnaudio_tpu/ops/framed_matmul.py:878", "highest"),
         "gl_step_fft": ("nnaudio_tpu_torch/csrc/framed_fft.cu",
                         "nnaudio_tpu/ops/framed_matmul.py:239", "highest"),
+        "nnls_banded": ("nnaudio_tpu_torch/csrc/nnls_banded.cu",
+                        "none (nnaudio_tpu/features/inverse_mel.py mel_to_power: einsum)",
+                        "highest"),
     }
     kernels = []
     for k, (src, replaces, mode) in meta.items():

@@ -1,11 +1,10 @@
 """Vocoder-free mel -> audio: NNLS mel pseudo-inversion + Griffin-Lim.
 
 A TTS or enhancement model emits mels; :class:`InverseMelSpectrogram`
-recovers a power spectrogram with a batched projected-gradient NNLS (plain
-matmuls over all (batch, time) columns at once, fixed step
-``1/sigma_max(M)^2`` computed in fp64 at init) and then the phase with
-:class:`Griffin_Lim`. :class:`InverseMFCC` undoes the MFCC's DCT and dB
-stages first.
+recovers a power spectrogram with a batched projected-gradient NNLS (every
+(batch, time) column at once, fixed step ``1/sigma_max(M)^2`` computed in
+fp64 at init) and then the phase with :class:`Griffin_Lim`.
+:class:`InverseMFCC` undoes the MFCC's DCT and dB stages first.
 
     inv = InverseMelSpectrogram(sr=22050, n_fft=1024, hop_length=256, n_mels=80)
     audio = inv(mel)                       # (B, n_mels, T) -> (B, L)
@@ -13,11 +12,11 @@ stages first.
 from __future__ import annotations
 
 import numpy as np
-import torch
 import torch.nn.functional as F
 
 from ..core.apply import project
 from ..filters.mel import dct_matrix, mel_filterbank
+from ..ops.dispatch import nnls
 from .base import SpectralTransform, adopt_state
 from .griffin_lim import Griffin_Lim
 
@@ -90,13 +89,11 @@ class InverseMelSpectrogram(SpectralTransform):
     def mel_to_power(self, params, mel):
         """Batched NNLS: the |STFT|^power estimate ``s >= 0`` minimising
         ``||M s - mel||^2`` for every (batch, time) column, by projected
-        gradient with the fixed step ``1/sigma_max(M)^2``."""
-        m = params["mel_basis"]
-        s = torch.relu(project(params["mel_pinv"], mel))
-        for _ in range(self.n_iter_nnls):
-            resid = project(m, s) - mel
-            s = torch.relu(s - self._step * project(m.t(), resid))
-        return s
+        gradient with the fixed step ``1/sigma_max(M)^2`` (``ops.nnls``: one
+        kernel on the card for the transform's own basis outside autograd,
+        else dense products)."""
+        return nnls(params["mel_basis"], params["mel_pinv"], mel, self._step,
+                    self.n_iter_nnls)
 
     def _forward(self, params, mel, rand_phase=None, generator=None):
         if mel.ndim != 3:

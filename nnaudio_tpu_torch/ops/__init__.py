@@ -9,6 +9,7 @@ from .dispatch import (
     force_fuse,
     gl_step,
     kchunk_envelope,
+    nnls,
     synthesis_ola,
 )
 from .framed_kernels import LAUNCHES, reset_launches
@@ -22,6 +23,7 @@ __all__ = [
     "framed_power",
     "force_fuse",
     "gl_step",
+    "nnls",
     "synthesis_ola",
     "KCHUNK_MIN_N",
     "kchunk_envelope",

@@ -15,6 +15,9 @@ in which case it takes the plain version on every device:
 - ``gl_step``: K4, one Griffin-Lim analysis step (its route chosen in
   :mod:`.framed_kernels`: the FFT route, the tensor-core K4, or the pair and
   the update).
+- ``nnls``: the inverse Mel's NNLS, one launch of ``nnls_banded.cu`` for a
+  transform's own basis (:func:`.framed_kernels.nnls_plan`), else the dense
+  products.
 
 Under autograd (grad enabled and an operand that requires grad) the
 magnitude, power and filterbank wrappers take the pair (K5) and compute their
@@ -146,3 +149,12 @@ def gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom):
     if _analysis_on():
         return fk.gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom)
     return fk.gl_step_plain(x, wcos, wsin, S, p_re, p_im, hop, mom)
+
+
+def nnls(mel_basis, mel_pinv, mel, step, n_iter):
+    """The inverse Mel's NNLS: ``s = relu(pinv(M) mel)``, then ``n_iter``
+    projected-gradient steps ``s = relu(s - step M^T (M s - mel))``; (B, M, T)
+    mels -> (B, F, T)."""
+    if _analysis_on():
+        return fk.nnls(mel_basis, mel_pinv, mel, step, n_iter)
+    return fk.nnls_plain(mel_basis, mel_pinv, mel, step, n_iter)

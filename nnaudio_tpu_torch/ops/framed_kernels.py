@@ -11,6 +11,7 @@ wrapper                      CUDA kernel (``csrc/``)         TPU kernel replaced
                              (``framed_fft.cu``, FFT route)
 ``framed_pair``              ``framed_tc.cu`` K5             ``_pair_kernel``
 ``framed_magnitude_kchunk``  ``framed_kchunk.cu`` K6         ``_magnitude_kchunk_kernel``
+``nnls``                     ``nnls_banded.cu``              none (``einsum``)
 ===========================  ==============================  =====================
 
 K1 and K6 compute one function, ``framed_magnitude_plain``: K6 is its
@@ -36,6 +37,13 @@ fp32 carries, the real FFT of each frame and the Griffin-Lim update
 trainable basis, the inverse CQT's dual atoms, K5's backward) takes the
 tensor-core K2 or K3; a Griffin-Lim step with bf16 carries takes the
 tensor-core K4, and with fp32 carries the pair (K5) and :func:`gl_update`.
+
+The inverse Mel's NNLS (:func:`nnls`) is one launch of
+``nnls_banded.cu`` where :func:`nnls_plan` has a plan for the transform's own
+basis and pseudo-inverse outside autograd in fp32 storage: every
+projected-gradient step of a column runs on chip over the basis's bands
+(:func:`nnls_banded_plain` repeats its arithmetic); every other call takes
+the dense products of :func:`nnls_plain`.
 
 K1, K2, K4 and K5 are one tensor-core kernel (``wgmma``) with four
 epilogues. In fp32 storage it takes three TF32 products of operands split as
@@ -90,7 +98,7 @@ LAUNCHES: dict[str, int] = {"framed_magnitude": 0, "framed_filterbank": 0,
                             "synthesis_ola": 0, "gl_step": 0,
                             "framed_pair": 0, "framed_magnitude_kchunk": 0,
                             "framed_filterbank_fft": 0, "synthesis_ola_fft": 0,
-                            "gl_step_fft": 0}
+                            "gl_step_fft": 0, "nnls_banded": 0}
 
 
 def reset_launches() -> None:
@@ -670,6 +678,40 @@ def gl_step_3xtf32_plain(x, wcos, wsin, S, p_re, p_im, hop, mom):
     return gl_update(re, im, S, p_re, p_im, mom)
 
 
+def nnls_plain(mel_basis, mel_pinv, mel, step, n_iter):
+    """The inverse Mel's NNLS as dense products: ``s = relu(pinv(M) mel)``,
+    then ``n_iter`` steps of ``s = relu(s - step M^T (M s - mel))``, each
+    product a :func:`project` (the precision mode's matmul). (M, F) basis, (F,
+    M) pseudo-inverse, (B, M, T) mels -> (B, F, T). Differentiable."""
+    s = torch.relu(project(mel_pinv, mel))
+    for _ in range(n_iter):
+        resid = project(mel_basis, s) - mel
+        s = torch.relu(s - step * project(mel_basis.t(), resid))
+    return s
+
+
+def nnls_banded_plain(mel_basis, mel_pinv, mel, step, n_iter):
+    """The NNLS kernel in plain PyTorch, with its arithmetic, per (batch,
+    time) column: the seed ``relu(pinv(M) mel)`` summed over the mel rows in
+    order from zero, then ``n_iter`` steps of ``r = M s - mel`` over the
+    basis's row bands and ``s = relu(s - step M^T r)`` over its column bands,
+    each band as :func:`banded_project_plain` adds it (:func:`filterbank_bands`
+    of M and of M^T), ``s - step g`` rounded twice. It computes
+    :func:`nnls_plain` in fp32. (B, M, T) mels -> (B, F, T)."""
+    cols = mel.detach().float().transpose(1, 2)  # (B, T, M)
+    pinv_t = mel_pinv.detach().float().t()
+    s = cols.new_zeros(cols.shape[:-1] + (pinv_t.shape[1],))
+    for m in range(pinv_t.shape[0]):
+        s = s + cols[..., m:m + 1] * pinv_t[m]
+    s = torch.relu(s)
+    basis = mel_basis.detach().float()
+    rows, bins = filterbank_bands(basis), filterbank_bands(basis.t())
+    for _ in range(n_iter):
+        r = banded_project_plain(s, *rows) - cols
+        s = torch.relu(s - step * banded_project_plain(r, *bins))
+    return s.transpose(1, 2)
+
+
 #: elements of one (B, frames, N) chunk of frames in the pair's dW
 DW_CHUNK_ELEMS = 1 << 26
 
@@ -772,6 +814,10 @@ _SIGNATURES = {
         "framed_fft",
         [_VOID] * 10 + [_INT] * 5 + [ctypes.c_float, _VOID]),
     "nnaudio_gl_step_fft_twiddles": ("framed_fft", [_INT]),
+    "nnaudio_nnls_banded": (
+        "nnls_banded",
+        [_VOID] * 5 + [_INT] * 8 + [ctypes.c_float, _INT, _VOID]),
+    "nnaudio_nnls_banded_smem": ("nnls_banded", [_INT] * 3),
 }
 #: the span of each C entry's launch
 _LAUNCH_SPANS = {"nnaudio_framed_magnitude": "nnaudio.launch.K1",
@@ -783,7 +829,8 @@ _LAUNCH_SPANS = {"nnaudio_framed_magnitude": "nnaudio.launch.K1",
                  "nnaudio_kchunk_ranges": "nnaudio.launch.K6",
                  "nnaudio_framed_filterbank_fft": "nnaudio.launch.K2",
                  "nnaudio_synthesis_fft": "nnaudio.launch.K3",
-                 "nnaudio_gl_step_fft": "nnaudio.launch.K4"}
+                 "nnaudio_gl_step_fft": "nnaudio.launch.K4",
+                 "nnaudio_nnls_banded": "nnaudio.launch.NNLS"}
 _fns: dict[str, object] = {}
 
 
@@ -1201,6 +1248,84 @@ def build_gl_step_fft_plan(wcos, wsin) -> GLStepFFTPlan | None:
     return GLStepFFTPlan(window=wcos[0].detach().clone(), twiddle=fft_twiddles(n, wcos.device))
 
 
+class NNLSPlan(NamedTuple):
+    """What the NNLS kernel reads besides the mels, made once per basis: the
+    pseudo-inverse transposed (M, F); the bands, int32 (M + nf, 4), per row of
+    M ``(lo - fa, length, offset, 0)`` (its nonzero columns, from the active
+    bins' first), then per bin of the active range ``[fa, fa + nf)`` (the bins
+    whose column of M is not all zero) ``(first row, length, offset, 0)``, or
+    for a bin of at most two rows ``(first row, length, v0, v1)`` with its
+    entries' fp32 bits in place (0 past its length); their entries, the rows'
+    ``nnz_rows`` then the bins' (:func:`filterbank_bands` of M and of M^T)."""
+    pinv_t: torch.Tensor
+    band: torch.Tensor
+    vals: torch.Tensor
+    fa: int
+    nf: int
+    nnz_rows: int
+
+
+#: columns of a block of the NNLS kernel's steps (one to a lane), and the mel
+#: rows it takes at most (a warp keeps its rows' mel in registers)
+NNLS_COLUMNS = 32
+NNLS_MAX_M = 128
+#: shared memory a block of the H100 can have, in bytes
+SMEM_LIMIT = 232448
+
+
+def nnls_block_bytes(nf: int, m: int, nnz: int) -> int:
+    """Shared memory of a block of the NNLS kernel's steps
+    (``step_smem_bytes`` in ``csrc/nnls_banded.cu``): s of ``nf`` active bins
+    and the residual of ``m`` rows, :data:`NNLS_COLUMNS` columns each, a
+    16-byte header a row and a bin, the ``nnz`` entries of both bands."""
+    return 4 * NNLS_COLUMNS * (nf + m) + 16 * (m + nf) + 4 * nnz
+
+
+def _nnls_kernel_takes(nf: int, m: int, nnz: int) -> bool:
+    """Whether the NNLS kernel runs a block of these bands: its query says so
+    with the block's shared memory (0 where it cannot), which has to be
+    :func:`nnls_block_bytes`'s."""
+    nbytes = _fn("nnaudio_nnls_banded_smem")(nf, m, nnz)
+    if nbytes and nbytes != nnls_block_bytes(nf, m, nnz):
+        raise RuntimeError(f"nnls_banded.cu's block takes {nbytes} bytes for nf={nf}, m={m}, "
+                           f"nnz={nnz}; nnls_block_bytes counts {nnls_block_bytes(nf, m, nnz)}")
+    return nbytes > 0
+
+
+def build_nnls_plan(mel_basis, mel_pinv) -> NNLSPlan | None:
+    """The NNLS kernel's plan for a basis (M, F) and its pseudo-inverse (F,
+    M), or None where they are not its operands: fp32, at most
+    :data:`NNLS_MAX_M` rows, and a block of the steps that fits the H100's
+    shared memory (:func:`nnls_block_bytes`; on the card, the kernel's own
+    query)."""
+    if not (mel_basis.ndim == 2 and mel_basis.dtype == mel_pinv.dtype == torch.float32
+            and tuple(mel_pinv.shape) == tuple(mel_basis.shape)[::-1]
+            and 1 <= mel_basis.shape[0] <= NNLS_MAX_M):
+        return None
+    basis = mel_basis.detach()
+    m = basis.shape[0]
+    active = torch.nonzero((basis != 0).any(0)).flatten().tolist()
+    fa, nf = (active[0], active[-1] + 1 - active[0]) if active else (0, 0)
+    lo, off, row_vals = filterbank_bands(basis)
+    clo, coff, bin_vals = filterbank_bands(basis.t()[fa:fa + nf])
+    nnz = row_vals.numel() + bin_vals.numel()
+    if nnls_block_bytes(nf, m, nnz) > SMEM_LIMIT:
+        return None
+    if basis.is_cuda and not _nnls_kernel_takes(nf, m, nnz):
+        return None
+    length, clen = off[1:] - off[:-1], coff[1:] - coff[:-1]
+    # a bin of at most two rows holds its entries in its header
+    padded = F.pad(bin_vals, (0, 2))
+    v0 = torch.where(clen > 0, padded[coff[:-1]], 0.0).view(torch.int32).long()
+    v1 = torch.where(clen > 1, padded[coff[:-1] + 1], 0.0).view(torch.int32).long()
+    short = clen <= 2
+    rows = torch.stack((lo - fa, length, off[:-1], torch.zeros_like(lo)), 1)
+    bins = torch.stack((clo, clen, torch.where(short, v0, coff[:-1]), torch.where(short, v1, 0)), 1)
+    return NNLSPlan(pinv_t=mel_pinv.detach().t().contiguous(),
+                    band=torch.cat((rows, bins)).int().contiguous(),
+                    vals=torch.cat((row_vals, bin_vals)), fa=fa, nf=nf, nnz_rows=row_vals.numel())
+
+
 # ------------------------------------------------------------ the routes --
 class _Own:
     """The mark of a transform's own tensor (:func:`mark_own`): the FFT plans
@@ -1326,6 +1451,19 @@ def gl_step_fft_plan(wcos, wsin, p_re, p_im) -> GLStepFFTPlan | None:
     return _kept(build_gl_step_fft_plan, (wcos, wsin))
 
 
+def nnls_plan(mel_basis, mel_pinv, mel) -> NNLSPlan | None:
+    """The NNLS kernel for these operands: the plan of the basis and its
+    pseudo-inverse (:func:`build_nnls_plan`, kept as :func:`_kept` keeps it),
+    or None, which leaves the NNLS to the dense products (:func:`nnls_plain`).
+    Mels not in fp32, bf16 storage, a differentiated call, and a basis or
+    pseudo-inverse not marked (:func:`mark_own`) take the products
+    unchecked."""
+    if (storage_dtype() != torch.float32 or mel.dtype != torch.float32
+            or _differentiated(mel, mel_basis, mel_pinv)):
+        return None
+    return _kept(build_nnls_plan, (mel_basis, mel_pinv))
+
+
 def _launch_filterbank_fft(x, wcos, wsin, fb, hop, eps, plan):
     """K2's FFT route, inside the wrapper's span: the bases and the
     filterbank are read from ``plan``."""
@@ -1406,6 +1544,27 @@ def _launch_gl_step_fft(x, wcos, wsin, S, p_re, p_im, hop, mom, plan):
              *(o.data_ptr() for o in outs), b, length, n, hop, t, float(mom), _stream())
     LAUNCHES["gl_step_fft"] += 1
     return tuple(outs)
+
+
+def _launch_nnls(mel_basis, mel_pinv, mel, step, n_iter, plan):
+    """The NNLS kernel, inside the wrapper's span: the basis's bands and its
+    pseudo-inverse read from ``plan``, ``n_iter`` steps of ``step``."""
+    _check_cuda(mel)
+    dev = plan.pinv_t.device
+    ms = _operand(mel, "mel", 3, dev)
+    b, m, t = ms.shape
+    if m != plan.pinv_t.shape[0]:
+        raise ValueError(f"mel {tuple(ms.shape)} does not match {plan.pinv_t.shape[0]} mel rows")
+    f = plan.pinv_t.shape[1]
+    out = torch.empty((b, f, t), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        _run("nnaudio_nnls_banded", ms.data_ptr(), plan.pinv_t.data_ptr(), plan.band.data_ptr(),
+             plan.vals.data_ptr(), out.data_ptr(), b, m, f, t, plan.fa, plan.nf,
+             plan.nnz_rows, plan.vals.numel(), float(step), max(0, int(n_iter)), _stream())
+    LAUNCHES["nnls_banded"] += 1
+    return out
 
 
 def _launch_synthesis(spec_re, spec_im, kc, ks, hop):
@@ -1633,3 +1792,23 @@ def gl_step(x, wcos, wsin, S, p_re, p_im, hop, mom):
             return _GLStep.apply(x, wcos, wsin, S, p_re, p_im, hop, mom, None)
         note_route("K4.pair")
     return gl_update(*framed_pair(x, wcos, wsin, hop), S, p_re, p_im, mom)
+
+
+def nnls(mel_basis, mel_pinv, mel, step, n_iter):
+    """The inverse Mel's NNLS -> (B, F, T) float32: ``s = relu(pinv(M)
+    mel)``, then ``n_iter`` steps of ``s = relu(s - step M^T (M s - mel))``
+    for every (batch, time) column of the (B, M, T) mels. The kernel
+    (``csrc/nnls_banded.cu``) where :func:`nnls_plan` has a plan for the
+    operands; the dense products of :func:`nnls_plain` for every other call:
+    under autograd (the inverse stays differentiable), in bf16 storage, on the
+    CPU, for a basis passed in or one whose block does not fit. The kernel
+    has no backward."""
+    if not _on_card(mel):
+        return nnls_plain(mel_basis, mel_pinv, mel, step, n_iter)
+    with span("nnaudio.wrap.NNLS"):
+        plan = nnls_plan(mel_basis, mel_pinv, mel)
+        if plan is not None:
+            note_route("NNLS.fused")
+            return _launch_nnls(mel_basis, mel_pinv, mel, step, n_iter, plan)
+        note_route("NNLS.plain")
+    return nnls_plain(mel_basis, mel_pinv, mel, step, n_iter)

@@ -97,6 +97,7 @@ def _kernel_route():
         mp.setattr(fk, "_launch_synthesis", fk.synthesis_ola_plain)
         mp.setattr(fk, "_launch_synthesis_fft", lambda sre, sim, hop, plan:
                    fk.synthesis_ola_fft_plain(sre, sim, plan.scale, hop))
+        mp.setattr(fk, "_launch_nnls", lambda *args: fk.nnls_banded_plain(*args[:-1]))
         yield calls
 
 

@@ -82,6 +82,7 @@ def kernel_route(monkeypatch):
         lambda sre, sim, hop, plan: fk.synthesis_ola_fft_plain(sre, sim, plan.scale, hop)))
     monkeypatch.setattr(fk, "_launch_gl_step_fft", launch(
         "gl_step_fft", lambda *args: fk.gl_step_fft_plain(*args[:-1])))
+    monkeypatch.setattr(fk, "_launch_nnls", lambda *args: fk.nnls_banded_plain(*args[:-1]))
     return calls
 
 
